@@ -10,21 +10,33 @@ before the result line:
                 and power limit as ``nvidia-smi`` reports them.
   2. build   -- compiles the hand-written kernels from ``csrc/`` (nvcc,
                 sm_90a) and prints the seconds and ptxas's register report.
-  3. kernels -- ``folb_scores`` and ``folb_apply`` against their plain
-                PyTorch versions on the card, bf16 and fp32 buffers, at the
-                main-path shapes (K = 10, D_pad = 1,024 for MCLR and 114,688
-                for the paper LSTM) and edge shapes (K = 1, K = 64, an odd
-                tile count); a bit-identical repeat of ``folb_scores``; CUDA
-                event times beside the bound, the plain version and one
-                PyTorch library call.
+  3. kernels -- ``folb_scores``, ``folb_apply`` and ``guard_stats`` against
+                their plain PyTorch versions on the card, bf16 and fp32
+                buffers, at the main-path shapes (K = 10, D_pad = 1,024 for
+                MCLR and 114,688 for the paper LSTM) and edge shapes (K = 1,
+                K = 64, an odd tile count); ``guard_stats`` also on inputs
+                with NaN, +Inf and -Inf planted in rows of the deltas only,
+                the grads only, and both; bit-identical repeats of the two
+                two-launch kernels; CUDA event times beside the bound, the
+                plain version and, where one exists, one PyTorch library
+                call.
   4. main path -- ``repro_torch.fed.run`` on the card: MCLR on
-                Synthetic(1,1) with the quickstart config (20 rounds) and
-                the paper LSTM at full width on char_stream (3 rounds).  The
-                launch counters are zeroed just before and read just after
-                each run and must equal the rounds run; losses are finite
-                and the MCLR train loss falls.
+                Synthetic(1,1) with the quickstart config (20 rounds), the
+                paper LSTM at full width on char_stream (3 rounds), and the
+                same LSTM guarded under a failure scenario with drops, NaN
+                and norm-inflated payloads (3 rounds).  The launch counters
+                are zeroed just before and read just after each run and must
+                equal the rounds run (``guard_stats``: the guarded rounds);
+                losses are finite and the MCLR train loss falls.
+  4b. guard  -- MCLR at the settings of ``benchmarks/resilience.py`` (30
+                devices, 40 rounds, 5 % corruption): clean, corrupted
+                unguarded and corrupted guarded; the guarded run must be
+                finite and within 0.05 test accuracy of the clean run.  One
+                corrupted round through ``fed.simulator.fl_round`` must
+                count each NaN row that arrived as non-finite.
   5. reference -- the card's runs agree with the port's plain CPU path on
-                small inputs (MCLR and a narrow LSTM, fp32 buffers).
+                small inputs (MCLR and a narrow LSTM, fp32 buffers), clean
+                and guarded under a failure scenario.
 
 The last lines are the kernels summary, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -41,6 +53,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-6       # kernel vs plain: fp32 sums in another order
 REF_ATOL = 1e-5               # card vs CPU run, fp32 buffers, few rounds
+RESILIENCE_TOL = 0.05         # guarded vs clean final test accuracy
+GUARD_KW = {"nonfinite": True, "clip_mult": 5.0, "gate_mult": 20.0}
+KERNELS = ("folb_scores", "folb_apply", "guard_stats")
 
 PALLAS = "src/repro/kernels/folb_aggregate.py"
 SOURCE = "src/repro_torch/kernels/csrc/folb_aggregate.cu"
@@ -89,6 +104,23 @@ def bound_ms(n_bytes: int, n_flops: int):
                                  "operations")
 
 
+def plant_nonfinite(torch, deltas, grads):
+    """Copies of the buffers with NaN, +Inf and -Inf planted in chosen rows:
+    the deltas only (row 1), the grads only (row 2) and both (row 3), at
+    lanes in the first and the last tile; with fewer rows, both in row 0."""
+    d, g = deltas.clone(), grads.clone()
+    K, D = d.shape
+    nan, inf = float("nan"), float("inf")
+    rows = {1: "deltas", 2: "grads", 3: "both"} if K > 3 else {0: "both"}
+    for r, where in rows.items():
+        lo, hi = 37 * r % D, D - 1 - r
+        if where in ("deltas", "both"):
+            d[r, lo], d[r, hi] = nan, inf
+        if where in ("grads", "both"):
+            g[r, lo], g[r, hi] = -inf, nan
+    return d, g
+
+
 def check_kernels(torch, K_mod):
     """Phase 3: every (shape, dtype) case against the plain versions."""
     shapes = [(10, 1024, "mclr"), (10, 114_688, "lstm"),
@@ -97,7 +129,7 @@ def check_kernels(torch, K_mod):
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    rows, errs = [], {"folb_scores": 0.0, "folb_apply": 0.0}
+    rows, errs = [], {name: 0.0 for name in KERNELS}
     for K, D, role in shapes:
         base = torch.randn(D, generator=gen)
         grads32 = base + torch.randn((K, D), generator=gen)
@@ -116,11 +148,24 @@ def check_kernels(torch, K_mod):
             a_k = K_mod.folb_apply(w, d, wt)
             a_p = K_mod.folb_apply_plain(w, d, wt)
             torch.testing.assert_close(a_k, a_p, rtol=RTOL, atol=ATOL)
+            e_g = 0.0
+            for dd, gg in ((d, g), plant_nonfinite(torch, d, g)):
+                n_k, f_k = K_mod.guard_stats(dd, gg)
+                n_p, f_p = K_mod.guard_stats_plain(dd, gg)
+                if not torch.equal(f_k, f_p):
+                    raise AssertionError(f"guard_stats flags {f_k.tolist()}"
+                                         f" != plain {f_p.tolist()}")
+                torch.testing.assert_close(n_k, n_p, rtol=RTOL, atol=ATOL)
+                n_r, f_r = K_mod.guard_stats(dd, gg)
+                if not (torch.equal(n_k, n_r) and torch.equal(f_k, f_r)):
+                    raise AssertionError("guard_stats repeat differs in bits")
+                e_g = max(e_g, float((n_k - n_p).abs().max()))
             torch.cuda.synchronize()
             e_s = float((s_k - s_p).abs().max())
             e_a = float((a_k - a_p).abs().max())
             errs["folb_scores"] = max(errs["folb_scores"], e_s)
             errs["folb_apply"] = max(errs["folb_apply"], e_a)
+            errs["guard_stats"] = max(errs["guard_stats"], e_g)
 
             eb = g.element_size()
             g1_lib = g1.to(dt)
@@ -129,6 +174,7 @@ def check_kernels(torch, K_mod):
             sb, sb_by = bound_ms(K * D * eb + D * 4 + K * 4, 2 * K * D)
             ab, ab_by = bound_ms(D * 4 + K * D * eb + K * 4 + D * 4,
                                  2 * K * D + D)
+            gb, gb_by = bound_ms(2 * K * D * eb + 2 * K * 4, 2 * K * D)
             row = {
                 "phase": "kernel", "K": K, "D_pad": D, "dtype": dname,
                 "role": role,
@@ -155,58 +201,172 @@ def check_kernels(torch, K_mod):
                     "call_us": host_us(torch,
                                        lambda: K_mod.folb_apply(w, d, wt)),
                     "bound_ms": ab, "bound_by": ab_by},
+                # no single PyTorch call yields both a sum of squares with
+                # non-finite lanes zeroed and a per-row finite flag
+                "guard_stats": {
+                    "max_abs_err": e_g, "bit_identical_repeat": True,
+                    "planted": "nan/+inf/-inf in deltas, grads, both",
+                    "ms": device_ms(torch,
+                                    lambda: K_mod.guard_stats(d, g)),
+                    "plain_ms": device_ms(
+                        torch, lambda: K_mod.guard_stats_plain(d, g)),
+                    "library_ms": None, "library": None,
+                    "call_us": host_us(torch,
+                                       lambda: K_mod.guard_stats(d, g)),
+                    "bound_ms": gb, "bound_by": gb_by},
             }
             emit(row)
             rows.append(row)
     return rows, errs
 
 
+def counted_run(torch, K_mod, label, rounds, guarded, fn):
+    """Run ``fn`` with every launch counter zeroed just before and read
+    just after; each kernel of the path must have launched once a round
+    (``guard_stats`` only on guarded paths).  -> (result, counts, secs)."""
+    K_mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {name: getattr(K_mod, name).launches for name in KERNELS}
+    want = {"folb_scores": rounds, "folb_apply": rounds,
+            "guard_stats": rounds if guarded else 0}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return res, counts, secs
+
+
+def finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
 def main_path(torch, K_mod):
-    """Phase 4: the port's front door on the card, counters zeroed just
-    before each run and read just after."""
+    """Phase 4: the port's front door on the card."""
     from repro_torch import fed
     from repro_torch.configs.paper_models import LSTM, MCLR
     from repro_torch.data.federated import stack_devices
     from repro_torch.data.synthetic import char_stream, synthetic_alpha_beta
+    from repro_torch.kernels import GuardConfig
+    from repro_torch.sysmodel import ScenarioConfig, realize
 
+    lstm_data = stack_devices(char_stream(seed=0, n_devices=20), seed=0)
+    lstm_fl = fed.FLConfig(algo="folb", n_selected=10, mu=1.0, lr=0.05,
+                           seed=0)
+    sc = ScenarioConfig(drop_prob=0.1, nan_prob=0.1, scale_prob=0.1,
+                        scale_mag=100.0, seed=0)
     runs = {
         "mclr": (MCLR, stack_devices(synthetic_alpha_beta(
             seed=0, n_devices=30, alpha=1.0, beta=1.0, mean_size=120),
             seed=0),
             fed.FLConfig(algo="folb", n_selected=10, mu=1.0, lr=0.05,
-                         seed=0), 20),
-        "lstm": (LSTM, stack_devices(char_stream(seed=0, n_devices=20),
-                                     seed=0),
-                 fed.FLConfig(algo="folb", n_selected=10, mu=1.0, lr=0.05,
-                              seed=0), 3),
+                         seed=0), 20, None),
+        "lstm": (LSTM, lstm_data, lstm_fl, 3, None),
+        "lstm_guarded": (LSTM, lstm_data, dataclasses.replace(
+            lstm_fl, guard=GuardConfig(**GUARD_KW)), 3, sc),
     }
-    launches = {"folb_scores": 0, "folb_apply": 0}
-    for name, (cfg, data, fl, rounds) in runs.items():
-        K_mod.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fed.run(cfg, data, fl, rounds)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = {"folb_scores": K_mod.folb_scores.launches,
-                  "folb_apply": K_mod.folb_apply.launches}
+    launches = {name: 0 for name in KERNELS}
+    for name, (cfg, data, fl, rounds, scenario) in runs.items():
+        res, counts, secs = counted_run(
+            torch, K_mod, name, rounds, fl.guard is not None,
+            lambda: fed.run(cfg, data, fl, rounds, scenario=scenario))
         losses = res["train_loss"]
-        emit({"phase": "main_path", "model": name, "rounds": rounds,
-              "n_devices": int(data.x.shape[0]),
-              "max_examples": int(data.x.shape[1]),
-              "seconds": secs, "seconds_per_round": secs / rounds,
-              "launches": counts, "train_loss": losses,
-              "test_acc": res["test_acc"]})
+        row = {"phase": "main_path", "model": name, "rounds": rounds,
+               "n_devices": int(data.x.shape[0]),
+               "max_examples": int(data.x.shape[1]),
+               "seconds": secs, "seconds_per_round": secs / rounds,
+               "launches": counts, "train_loss": losses,
+               "test_acc": res["test_acc"]}
+        if scenario is not None:
+            draws = realize(scenario, (rounds, fl.n_selected))
+            n_corrupt = int((draws.corrupt != 1.0).sum())
+            row.update(scenario=dataclasses.asdict(scenario),
+                       guard=GUARD_KW, corrupted_dispatches=n_corrupt,
+                       dropped_dispatches=int(draws.drop.sum()))
+            if n_corrupt == 0:
+                raise AssertionError(f"{name}: no dispatch was corrupted")
+        emit(row)
         for k, n in counts.items():
-            if n != rounds:
-                raise AssertionError(f"{name}: {k} launched {n} times in "
-                                     f"{rounds} rounds")
             launches[k] += n
-        if not all(map(lambda v: v == v and abs(v) != float("inf"),
-                       losses)):
+        if not finite(losses):
             raise AssertionError(f"{name}: non-finite loss {losses}")
         if name == "mclr" and not losses[-1] < losses[0]:
             raise AssertionError(f"MCLR train loss did not fall: {losses}")
+    return launches
+
+
+def guard_phase(torch, K_mod):
+    """Phase 4b: the guard doing its job, at the settings of
+    benchmarks/resilience.py, and one corrupted round's counters."""
+    from repro_torch import fed
+    from repro_torch.configs.paper_models import MCLR
+    from repro_torch.data.federated import stack_devices
+    from repro_torch.data.synthetic import synthetic_alpha_beta
+    from repro_torch.fed import scan_engine, simulator
+    from repro_torch.kernels import GuardConfig
+    from repro_torch.models import small
+    from repro_torch.sysmodel import ScenarioConfig
+
+    data = stack_devices(synthetic_alpha_beta(0, 30, 1.0, 1.0,
+                                              mean_size=60), seed=0)
+    guard = GuardConfig(**GUARD_KW)
+    sc = ScenarioConfig(nan_prob=0.025, scale_prob=0.025, scale_mag=100.0,
+                        seed=0)
+    base = fed.FLConfig(algo="folb", n_selected=10, mu=1.0, lr=0.05, seed=0)
+    rounds = 40
+    launches = {name: 0 for name in KERNELS}
+    acc = {}
+    for name, g, scen in (("clean", None, None), ("unguarded", None, sc),
+                          ("guarded", guard, sc)):
+        fl = dataclasses.replace(base, guard=g)
+        res, counts, secs = counted_run(
+            torch, K_mod, f"resilience {name}", rounds, g is not None,
+            lambda: fed.run(MCLR, data, fl, rounds, scenario=scen))
+        acc[name] = res["test_acc"][-1]
+        for k, n in counts.items():
+            launches[k] += n
+        emit({"phase": "resilience", "run": name, "rounds": rounds,
+              "final_test_acc": acc[name],
+              "final_train_loss": res["train_loss"][-1],
+              "seconds": secs, "seconds_per_round": secs / rounds,
+              "launches": counts})
+    if not (finite([acc["guarded"]])
+            and abs(acc["guarded"] - acc["clean"]) <= RESILIENCE_TOL):
+        raise AssertionError(f"guarded accuracy {acc['guarded']} is not "
+                             f"within {RESILIENCE_TOL} of clean "
+                             f"{acc['clean']}")
+
+    # one corrupted round through fl_round: two NaN rows arrive, one NaN
+    # row is dropped in transit, one row is inflated, one sign-flipped
+    dev = torch.device("cuda")
+    nan = float("nan")
+    corrupt = torch.tensor([nan, 1, 100, nan, nan, 1, 1, 1, -1, 1],
+                           device=dev)
+    up_mask = torch.tensor([1, 1, 1, 0, 1, 1, 1, 1, 1, 1],
+                           dtype=torch.float32, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.to(dev) for k, v in small.init_small(MCLR, gen).items()}
+    train = scan_engine.device_data(MCLR, data.x, data.y, data.mask, dev)
+    ids = torch.arange(10, device=dev)
+    steps = torch.as_tensor(simulator.local_step_draws(0, 10, base)).to(dev)
+    fl = dataclasses.replace(base, guard=guard)
+    (new, diag), counts, _ = counted_run(
+        torch, K_mod, "fl_round", 1, True,
+        lambda: simulator.fl_round(MCLR, fl, params, train, ids, steps,
+                                   up_mask=up_mask, corrupt=corrupt))
+    for k, n in counts.items():
+        launches[k] += n
+    ginfo = {k: v.tolist() for k, v in diag["guard"].items()}
+    arrived_nan = int((torch.isnan(corrupt) & (up_mask > 0)).sum())
+    emit({"phase": "guard_round", "corrupt": corrupt.tolist(),
+          "up_mask": up_mask.tolist(), "arrived_nan_rows": arrived_nan,
+          "guard": ginfo, "launches": counts})
+    if ginfo["n_nonfinite"] != arrived_nan:
+        raise AssertionError(f"n_nonfinite {ginfo['n_nonfinite']} != "
+                             f"{arrived_nan} NaN rows that arrived")
+    if not all(bool(torch.isfinite(v).all()) for v in new.values()):
+        raise AssertionError("the guarded round left non-finite params")
     return launches
 
 
@@ -216,21 +376,32 @@ def against_cpu(torch):
     from repro_torch.configs.paper_models import LSTM, MCLR
     from repro_torch.data.federated import stack_devices
     from repro_torch.data.synthetic import char_stream, synthetic_alpha_beta
+    from repro_torch.kernels import GuardConfig
+    from repro_torch.sysmodel import ScenarioConfig
 
     narrow = dataclasses.replace(LSTM, vocab=12, n_classes=12, seq_len=8,
                                  hidden=16, embed=8)
+    mclr_data = stack_devices(synthetic_alpha_beta(
+        0, 12, 1.0, 1.0, mean_size=40), seed=0)
+    lstm_data = stack_devices(char_stream(
+        0, 8, vocab=12, seq_len=8, mean_size=20, n_classes=12), seed=0)
+    fl = fed.FLConfig(n_selected=4, max_local_steps=5, agg_dtype="float32",
+                      seed=1)
+    guarded = dataclasses.replace(fl, guard=GuardConfig(**GUARD_KW))
+    # seed 26 drops an upload and brings a NaN and an inflated payload in
+    # the first two rounds, each outvoted by benign rows, so the guard
+    # holds the runs at unit scale, where REF_ATOL is some 100 fp32 ulps
+    sc = ScenarioConfig(drop_prob=0.2, nan_prob=0.15, scale_prob=0.15,
+                        scale_mag=100.0, seed=26)
     cases = {
-        "mclr": (MCLR, stack_devices(synthetic_alpha_beta(
-            0, 12, 1.0, 1.0, mean_size=40), seed=0), 3),
-        "lstm_narrow": (narrow, stack_devices(char_stream(
-            0, 8, vocab=12, seq_len=8, mean_size=20, n_classes=12),
-            seed=0), 2),
+        "mclr": (MCLR, mclr_data, fl, None, 3),
+        "lstm_narrow": (narrow, lstm_data, fl, None, 2),
+        "mclr_guarded_scenario": (MCLR, mclr_data, guarded, sc, 3),
+        "lstm_narrow_guarded_scenario": (narrow, lstm_data, guarded, sc, 2),
     }
-    for name, (cfg, data, rounds) in cases.items():
-        fl = fed.FLConfig(n_selected=4, max_local_steps=5,
-                          agg_dtype="float32", seed=1)
-        card = fed.run(cfg, data, fl, rounds)
-        cpu = fed.run(cfg, data, fl, rounds, device="cpu")
+    for name, (cfg, data, fl, scen, rounds) in cases.items():
+        card = fed.run(cfg, data, fl, rounds, scenario=scen)
+        cpu = fed.run(cfg, data, fl, rounds, device="cpu", scenario=scen)
         loss_err = max(abs(a - b) for a, b in
                        zip(card["train_loss"], cpu["train_loss"]))
         param_err = max(float((card.params[k].cpu() - cpu.params[k])
@@ -276,13 +447,16 @@ def main() -> int:
 
     rows, errs = check_kernels(torch, K_mod)
     launches = main_path(torch, K_mod)
+    for k, n in guard_phase(torch, K_mod).items():
+        launches[k] += n
     against_cpu(torch)
 
     main_row = next(r for r in rows if r["role"] == "lstm"
                     and r["dtype"] == "bfloat16")
-    replaces = {"folb_scores": f"{PALLAS}:119", "folb_apply": f"{PALLAS}:147"}
+    replaces = {"folb_scores": f"{PALLAS}:119", "folb_apply": f"{PALLAS}:147",
+                "guard_stats": f"{PALLAS}:180"}
     summary = []
-    for name in ("folb_scores", "folb_apply"):
+    for name in KERNELS:
         m = main_row[name]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE,

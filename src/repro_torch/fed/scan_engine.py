@@ -8,6 +8,14 @@ trajectory, and the history is evaluated afterwards at the same points the
 reference evaluates (``eval_history_replay``).  The round loop itself never
 waits for the device.
 
+A failure scenario (``scenario=``, a ``repro_torch.sysmodel.
+ScenarioConfig``) is realized once before the run from the reference's
+numpy streams: its completeness channel scales the step budgets, its drop
+channel becomes each round's upload mask and its payload channels each
+round's corruption factors.  Jitter only scales a fleet's wall clock, and
+the port has no fleet yet, so it has no effect (as in the reference with
+``fleet=None``).  A null scenario runs the exact pre-scenario code.
+
 JAX's threefry draws cannot be reproduced in torch, so the engine has two
 test seams: ``ids=`` replays a given ``(rounds, K)`` id schedule in place
 of the port's own sampler, and ``init_params=`` starts from given
@@ -26,6 +34,7 @@ from repro_torch.core import selection
 from repro_torch.device import resolve
 from repro_torch.fed import simulator
 from repro_torch.models import small
+from repro_torch.sysmodel import scenario as scenario_mod
 
 
 def _generator(seed: int, stream: int) -> torch.Generator:
@@ -69,11 +78,15 @@ def eval_history_replay(model_cfg, spec: flat_lib.FlatSpec, train, test, p,
 
 def run_federated_compiled(model_cfg, fed, fl: simulator.FLConfig,
                            rounds: int, *, eval_every: int = 1,
-                           device=None, ids=None, init_params=None
-                           ) -> simulator.FedRunResult:
+                           device=None, ids=None, init_params=None,
+                           scenario=None) -> simulator.FedRunResult:
     """Run ``rounds`` synchronous rounds of ``fl`` on ``fed`` (any object
-    with the ``FederatedData`` fields).  ``device=None`` runs on the card.
-    ``ids``/``init_params`` are the test seams described above."""
+    with the ``FederatedData`` fields) under an optional failure
+    ``scenario``.  ``device=None`` runs on the card.  ``ids``/
+    ``init_params`` are the test seams described above."""
+    sc = scenario_mod.as_active(scenario)
+    if sc is not None:
+        scenario_mod.check_sync(sc)
     dev = resolve(device)
     K = fl.n_selected
     if init_params is None:
@@ -91,16 +104,27 @@ def run_federated_compiled(model_cfg, fed, fl: simulator.FLConfig,
     if ids.shape != (rounds, K):
         raise ValueError(f"ids must be ({rounds}, {K}), got "
                          f"{tuple(ids.shape)}")
-    steps = torch.as_tensor(np.stack(
-        [simulator.local_step_draws(t, K, fl) for t in range(rounds)]))
-    ids_dev, steps_dev = ids.to(dev), steps.to(dev)
+    up_mask = corrupt = None
+    if sc is None:
+        steps = np.stack([simulator.local_step_draws(t, K, fl)
+                          for t in range(rounds)])
+    else:
+        steps, mask_np, _, corr_np = simulator.scenario_round_inputs(
+            fl, rounds, sc)
+        up_mask = torch.as_tensor(mask_np).to(dev)
+        if corr_np is not None:
+            corrupt = torch.as_tensor(corr_np).to(dev)
+    ids_dev = ids.to(dev)
+    steps_dev = torch.as_tensor(steps).to(dev)
 
     spec = flat_lib.spec_of(params)
     w = flat_lib.ravel(spec, params)
     traj = torch.empty((rounds, spec.D_pad), dtype=torch.float32, device=dev)
     for t in range(rounds):
-        new, _ = simulator.fl_round(model_cfg, fl, flat_lib.unravel(spec, w),
-                                    train, ids_dev[t], steps_dev[t])
+        new, _ = simulator.fl_round(
+            model_cfg, fl, flat_lib.unravel(spec, w), train, ids_dev[t],
+            steps_dev[t], up_mask=None if up_mask is None else up_mask[t],
+            corrupt=None if corrupt is None else corrupt[t])
         w = flat_lib.ravel(spec, new)
         traj[t] = w
     hist = eval_history_replay(model_cfg, spec, train, test, p, traj,

@@ -1,3 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version (``folb_aggregate``), their build (``build``) and entry points
-(``ops``)."""
+version (``folb_aggregate``), their build (``build``), entry points
+(``ops``) and the update guard's config (``guard``)."""
+from repro_torch.kernels.guard import GuardConfig
+
+__all__ = ["GuardConfig"]

@@ -26,6 +26,7 @@ from repro.kernels import ref as rref
 from repro_torch.kernels import folb_aggregate as tkern
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.guard import GuardConfig
 
 torch.set_num_threads(2)
 
@@ -174,6 +175,20 @@ def test_apply_rejects_what_the_kernel_does_not_take(case):
 
 @pytest.mark.parametrize("kw", ["mesh", "guard"])
 def test_ops_raise_on_unported_variants(kw):
+    """``mesh=`` is not ported and raises.  ``guard=`` is ported: a
+    ``GuardConfig`` runs and adds the guard's info to the return, anything
+    else raises ``TypeError``, and a config that guards nothing raises
+    ``ValueError``, as in the reference."""
     _, (tw, td, tg, _) = _problem(2, 1024, "float32", seed=14)
-    with pytest.raises(NotImplementedError):
-        tops.folb_aggregate_buffers(tw, td, tg, **{kw: object()})
+    if kw == "mesh":
+        with pytest.raises(NotImplementedError):
+            tops.folb_aggregate_buffers(tw, td, tg, mesh=object())
+        return
+    new_w, scores, ginfo = tops.folb_aggregate_buffers(
+        tw, td, tg, guard=GuardConfig())
+    assert new_w.shape == tw.shape and scores.shape == (2,)
+    assert sorted(ginfo) == ["mask", "n_clipped", "n_gated", "n_nonfinite"]
+    with pytest.raises(TypeError):
+        tops.folb_aggregate_buffers(tw, td, tg, guard=object())
+    with pytest.raises(ValueError):
+        GuardConfig(nonfinite=False)

@@ -37,6 +37,7 @@ from repro_torch.configs import paper_models as tpm
 from repro_torch.convert import from_reference
 from repro_torch.fed import scan_engine as tscan
 from repro_torch.fed import simulator as tsim
+from repro_torch.kernels.guard import GuardConfig
 
 torch.set_num_threads(2)
 
@@ -166,8 +167,26 @@ def test_own_sampler_is_seeded_and_learns():
     ("server_opt", "adam"), ("server_lr", 0.5), ("telemetry", True),
     ("sampler", "indexed")])
 def test_config_raises_on_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError):
-        tfed.FLConfig(**{field: value})
+    """Unported fields raise ``NotImplementedError``.  ``guard`` is
+    ported: it is validated as in the reference (a ``GuardConfig``, folb or
+    folb_het, flat backend), so a non-config raises ``TypeError`` and a bad
+    combination ``ValueError``."""
+    if field != "guard":
+        with pytest.raises(NotImplementedError):
+            tfed.FLConfig(**{field: value})
+        return
+    guard = GuardConfig(clip_mult=3.0)
+    assert tfed.FLConfig(guard=guard).guard is guard
+    tfed.FLConfig(algo="folb_het", psi=0.5, guard=guard)
+    with pytest.raises(TypeError):
+        tfed.FLConfig(guard=value)
+    with pytest.raises(ValueError, match="guard requires algo"):
+        tfed.FLConfig(algo="fedavg", guard=guard)
+    with pytest.raises(ValueError, match="agg_backend='flat'"):
+        tfed.FLConfig(agg_backend="pytree", guard=guard)
+    for bad in (dict(nonfinite=False), dict(clip_mult=-1.0)):
+        with pytest.raises(ValueError):
+            GuardConfig(**bad)
 
 
 def test_run_rejects_other_config_types():
