@@ -8,8 +8,9 @@ before the result line:
 
   1. device  -- needs ``torch.cuda.is_available()``; prints the card's name
                 and power limit as ``nvidia-smi`` reports them.
-  2. build   -- compiles the hand-written kernels from ``csrc/`` (nvcc,
-                sm_90a) and prints the seconds and ptxas's register report.
+  2. build   -- compiles the hand-written kernels from ``csrc/`` (one nvcc
+                per source, sm_90a, all started together) and prints the
+                seconds and ptxas's register report.
   3. kernels -- ``folb_scores``, ``folb_apply`` and ``guard_stats`` against
                 their plain PyTorch versions on the card, bf16 and fp32
                 buffers, at the main-path shapes (K = 10, D_pad = 1,024 for
@@ -20,6 +21,14 @@ before the result line:
                 two-launch kernels; CUDA event times beside the bound, the
                 plain version and, where one exists, one PyTorch library
                 call.
+  3b. attention and scan kernels -- ``flash_attention`` against its plain
+                version at the Zamba2 prefill shape (bf16), fed100m's
+                (fp32), GQA with a sliding window, a ragged S, non-causal
+                and a 256-wide head; ``ssd_scan`` at Zamba2's full width, the
+                reduced shape and S = chunk, y and the final state both
+                checked; times as in phase 3 (the library call for
+                attention is ``scaled_dot_product_attention``; none computes
+                the scan).
   4. main path -- ``repro_torch.fed.run`` on the card: MCLR on
                 Synthetic(1,1) with the quickstart config (20 rounds), the
                 paper LSTM at full width on char_stream (3 rounds), and the
@@ -34,9 +43,18 @@ before the result line:
                 finite and within 0.05 test accuracy of the clean run.  One
                 corrupted round through ``fed.simulator.fl_round`` must
                 count each NaN row that arrived as non-finite.
+  4c. serve  -- ``repro_torch.launch.serve.main`` on Zamba2-2.7B at full
+                width and depth (bf16, batch 4, prompt 512, 16 greedy
+                tokens), then fed100m: prefill seconds, decode tokens/s,
+                finite logits; the counters, zeroed just before, must read 9
+                ``flash_attention`` and 54 ``ssd_scan`` launches for Zamba2
+                (12 and 0 for fed100m) after the prefill and the 15 decode
+                steps, so decode launches none.
   5. reference -- the card's runs agree with the port's plain CPU path on
                 small inputs (MCLR and a narrow LSTM, fp32 buffers), clean
-                and guarded under a failure scenario.
+                and guarded under a failure scenario; and reduced Zamba2
+                (two super-groups) and fed100m prefill + 3 decode steps in
+                fp32.
 
 The last lines are the kernels summary, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -51,14 +69,27 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-5, 1e-6       # kernel vs plain: fp32 sums in another order
 REF_ATOL = 1e-5               # card vs CPU run, fp32 buffers, few rounds
 RESILIENCE_TOL = 0.05         # guarded vs clean final test accuracy
 GUARD_KW = {"nonfinite": True, "clip_mult": 5.0, "gate_mult": 20.0}
-KERNELS = ("folb_scores", "folb_apply", "guard_stats")
+FOLB_KERNELS = ("folb_scores", "folb_apply", "guard_stats")
+KERNELS = FOLB_KERNELS + ("flash_attention", "ssd_scan")
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # the reference's bounds
+SSD_ATOL, SSD_RTOL = 2e-4, 1e-4   # step-by-step vs chunked fp32 rounding
+MODEL_ATOL = 1e-4                 # card vs CPU logits, fp32, unit scale
 
 PALLAS = "src/repro/kernels/folb_aggregate.py"
 SOURCE = "src/repro_torch/kernels/csrc/folb_aggregate.cu"
+REPLACES = {"folb_scores": f"{PALLAS}:119", "folb_apply": f"{PALLAS}:147",
+            "guard_stats": f"{PALLAS}:180",
+            "flash_attention": "src/repro/kernels/flash_attention.py:101",
+            "ssd_scan": "src/repro/kernels/ssm_scan.py:73"}
+SOURCES = {"folb_scores": SOURCE, "folb_apply": SOURCE, "guard_stats": SOURCE,
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu"}
 
 
 def emit(obj) -> None:
@@ -97,9 +128,10 @@ def host_us(torch, fn, calls=200) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def bound_ms(n_bytes: int, n_flops: int):
+def bound_ms(n_bytes: int, n_flops: int,
+             flop_per_s: float = FP32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -129,7 +161,7 @@ def check_kernels(torch, K_mod):
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    rows, errs = [], {name: 0.0 for name in KERNELS}
+    rows, errs = [], {name: 0.0 for name in FOLB_KERNELS}
     for K, D, role in shapes:
         base = torch.randn(D, generator=gen)
         grads32 = base + torch.randn((K, D), generator=gen)
@@ -220,19 +252,26 @@ def check_kernels(torch, K_mod):
     return rows, errs
 
 
-def counted_run(torch, K_mod, label, rounds, guarded, fn):
+def folb_want(rounds: int, guarded: bool) -> dict:
+    """Launches of an FL run: each FOLB kernel once a round
+    (``guard_stats`` only on guarded rounds), no attention or scan."""
+    return {"folb_scores": rounds, "folb_apply": rounds,
+            "guard_stats": rounds if guarded else 0}
+
+
+def counted_run(torch, label, want, fn):
     """Run ``fn`` with every launch counter zeroed just before and read
-    just after; each kernel of the path must have launched once a round
-    (``guard_stats`` only on guarded paths).  -> (result, counts, secs)."""
-    K_mod.reset_launches()
+    just after; the counts must equal ``want`` (kernels it leaves out: 0).
+    -> (result, counts, secs)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {name: getattr(K_mod, name).launches for name in KERNELS}
-    want = {"folb_scores": rounds, "folb_apply": rounds,
-            "guard_stats": rounds if guarded else 0}
+    counts = ops.launches()
+    want = {name: want.get(name, 0) for name in KERNELS}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
     return res, counts, secs
@@ -242,7 +281,7 @@ def finite(values) -> bool:
     return all(v == v and abs(v) != float("inf") for v in values)
 
 
-def main_path(torch, K_mod):
+def main_path(torch):
     """Phase 4: the port's front door on the card."""
     from repro_torch import fed
     from repro_torch.configs.paper_models import LSTM, MCLR
@@ -269,7 +308,7 @@ def main_path(torch, K_mod):
     launches = {name: 0 for name in KERNELS}
     for name, (cfg, data, fl, rounds, scenario) in runs.items():
         res, counts, secs = counted_run(
-            torch, K_mod, name, rounds, fl.guard is not None,
+            torch, name, folb_want(rounds, fl.guard is not None),
             lambda: fed.run(cfg, data, fl, rounds, scenario=scenario))
         losses = res["train_loss"]
         row = {"phase": "main_path", "model": name, "rounds": rounds,
@@ -296,7 +335,7 @@ def main_path(torch, K_mod):
     return launches
 
 
-def guard_phase(torch, K_mod):
+def guard_phase(torch):
     """Phase 4b: the guard doing its job, at the settings of
     benchmarks/resilience.py, and one corrupted round's counters."""
     from repro_torch import fed
@@ -321,7 +360,7 @@ def guard_phase(torch, K_mod):
                           ("guarded", guard, sc)):
         fl = dataclasses.replace(base, guard=g)
         res, counts, secs = counted_run(
-            torch, K_mod, f"resilience {name}", rounds, g is not None,
+            torch, f"resilience {name}", folb_want(rounds, g is not None),
             lambda: fed.run(MCLR, data, fl, rounds, scenario=scen))
         acc[name] = res["test_acc"][-1]
         for k, n in counts.items():
@@ -352,7 +391,7 @@ def guard_phase(torch, K_mod):
     steps = torch.as_tensor(simulator.local_step_draws(0, 10, base)).to(dev)
     fl = dataclasses.replace(base, guard=guard)
     (new, diag), counts, _ = counted_run(
-        torch, K_mod, "fl_round", 1, True,
+        torch, "fl_round", folb_want(1, True),
         lambda: simulator.fl_round(MCLR, fl, params, train, ids, steps,
                                    up_mask=up_mask, corrupt=corrupt))
     for k, n in counts.items():
@@ -413,6 +452,205 @@ def against_cpu(torch):
             raise AssertionError(f"{name}: card and CPU runs disagree")
 
 
+def _timed(torch, fn) -> float:
+    """Device ms per call of a heavier kernel: fewer calls per batch."""
+    return device_ms(torch, fn, per_batch=5, batches=20)
+
+
+def check_attention(torch):
+    """Phase 3b, attention: the kernel against its plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+    # (role, B, S, H, KV, d, causal, window, dtype)
+    cases = [("zamba2", 4, 512, 32, 32, 80, True, 0, "bfloat16"),
+             ("fed100m", 4, 512, 12, 12, 64, True, 0, "float32"),
+             ("gqa_window", 2, 1024, 8, 2, 128, True, 256, "bfloat16"),
+             ("ragged", 2, 200, 8, 8, 80, True, 0, "float32"),
+             ("non_causal", 2, 512, 8, 8, 64, False, 0, "float32"),
+             ("d256", 1, 512, 8, 8, 256, True, 0, "bfloat16")]
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    rows = []
+    for role, B, S, H, KV, d, causal, window, dname in cases:
+        dt = getattr(torch, dname)
+        q = torch.randn((B, S, H, d), generator=gen).to(dev, dt)
+        k = torch.randn((B, S, KV, d), generator=gen).to(dev, dt)
+        v = torch.randn((B, S, KV, d), generator=gen).to(dev, dt)
+        kw = {"causal": causal, "sliding_window": window}
+        out = fa.flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        if not err < FLASH_TOL[dname]:
+            raise AssertionError(f"flash_attention {role}: max error {err}")
+        pos = torch.arange(S, device=dev)
+        live = torch.ones((S, S), dtype=torch.bool, device=dev)
+        if causal:
+            live &= pos[None, :] <= pos[:, None]
+        if window:
+            live &= pos[None, :] > pos[:, None] - window
+        pairs = int(live.sum())
+        eb = q.element_size()
+        bound, by = bound_ms(eb * (2 * B * S * H * d + 2 * B * S * KV * d),
+                             4 * B * H * d * pairs,
+                             BF16_FLOP_PER_S if dname == "bfloat16"
+                             else FP32_FLOP_PER_S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_kw = ({"attn_mask": live} if window
+                  else {"is_causal": causal})
+        row = {"phase": "kernel", "kernel": "flash_attention", "role": role,
+               "B": B, "S": S, "H": H, "KV": KV, "d": d, "causal": causal,
+               "window": window, "dtype": dname, "max_abs_err": err,
+               "tol": FLASH_TOL[dname],
+               "ms": _timed(torch, lambda: fa.flash_attention(q, k, v,
+                                                              **kw)),
+               "plain_ms": _timed(torch, lambda: flash_attention_ref(
+                   q, k, v, **kw)),
+               "library_ms": _timed(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, enable_gqa=KV != H, **lib_kw)),
+               "library": "torch.nn.functional.scaled_dot_product_attention",
+               "call_us": host_us(torch, lambda: fa.flash_attention(
+                   q, k, v, **kw), calls=50),
+               "bound_ms": bound, "bound_by": by}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def check_ssd(torch):
+    """Phase 3b, scan: the kernel against its plain version, y and the
+    final state."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssm_scan as ss
+    # (role, B, S, H, P, N, chunk): Zamba2 at full width, the reduced
+    # model, S = chunk
+    cases = [("zamba2", 4, 512, 80, 64, 64, 256),
+             ("reduced", 2, 64, 16, 32, 16, 32),
+             ("s_eq_chunk", 4, 256, 80, 64, 64, 256)]
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    rows = []
+    for role, B, S, H, P, N, chunk in cases:
+        x = torch.randn((B, S, H, P), generator=gen).to(dev)
+        loga = -F.softplus(torch.randn((B, S, H), generator=gen)).to(dev)
+        w = torch.sigmoid(torch.randn((B, S, H), generator=gen)).to(dev)
+        Bm = torch.randn((B, S, 1, N), generator=gen).to(dev)
+        Cm = torch.randn((B, S, 1, N), generator=gen).to(dev)
+        args = (x, loga, w, Bm, Cm)
+        y, h = ss.ssd_scan(*args, chunk=chunk)
+        y_p, h_p = ss.ssd_chunked(*args, chunk=chunk)
+        torch.testing.assert_close(y, y_p, atol=SSD_ATOL, rtol=SSD_RTOL)
+        torch.testing.assert_close(h, h_p, atol=SSD_ATOL, rtol=SSD_RTOL)
+        err_y = float((y - y_p).abs().max())
+        err_h = float((h - h_p).abs().max())
+        n_bytes = 4 * (2 * B * S * H * P + 2 * B * S * H + 2 * B * S * N
+                       + B * H * P * N)
+        bound, by = bound_ms(n_bytes, 5 * B * H * S * P * N)
+        row = {"phase": "kernel", "kernel": "ssd_scan", "role": role,
+               "B": B, "S": S, "H": H, "P": P, "N": N, "G": 1,
+               "chunk": chunk, "dtype": "float32",
+               "max_abs_err": max(err_y, err_h), "max_abs_err_y": err_y,
+               "max_abs_err_state": err_h, "y_max": float(y_p.abs().max()),
+               "atol": SSD_ATOL, "rtol": SSD_RTOL,
+               "ms": _timed(torch, lambda: ss.ssd_scan(*args, chunk=chunk)),
+               "plain_ms": _timed(torch, lambda: ss.ssd_chunked(
+                   *args, chunk=chunk)),
+               "library_ms": None, "library": None,
+               "call_us": host_us(torch, lambda: ss.ssd_scan(
+                   *args, chunk=chunk), calls=50),
+               "bound_ms": bound, "bound_by": by}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def serve_phase(torch):
+    """Phase 4c: the serve launcher at full width and depth."""
+    from repro_torch.configs import n_params
+    from repro_torch.launch import serve
+    B, S, G = 4, 512, 16
+    launches = {name: 0 for name in KERNELS}
+    rows = []
+    for arch, want in (("zamba2-2.7b", {"flash_attention": 9,
+                                        "ssd_scan": 54}),
+                       ("fed100m", {"flash_attention": 12})):
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, secs = counted_run(
+            torch, f"serve {arch}", want,
+            lambda: serve.main(["--arch", arch, "--batch", str(B),
+                                "--prompt-len", str(S), "--gen", str(G)]))
+        for name in ("prefill_logits", "last_logits"):
+            if not bool(torch.isfinite(res[name]).all()):
+                raise AssertionError(f"serve {arch}: non-finite {name}")
+        cfg = res["cfg"]
+        if res["tokens"].shape != (B, G):
+            raise AssertionError(f"serve {arch}: tokens "
+                                 f"{tuple(res['tokens'].shape)}")
+        row = {"phase": "serve", "arch": arch, "n_layers": cfg.n_layers,
+               "d_model": cfg.d_model, "n_params": n_params(cfg),
+               "dtype": cfg.param_dtype, "batch": B, "prompt_len": S,
+               "gen": G, "prefill_s": res["prefill_s"],
+               "decode_s": res["decode_s"],
+               "decode_steps": res["decode_steps"],
+               "decode_tok_per_s": B * res["decode_steps"] / res["decode_s"],
+               "decode_ms_per_step": 1e3 * res["decode_s"]
+               / res["decode_steps"],
+               "seconds_total": secs,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": counts,
+               "prefill_logits_absmax": float(
+                   res["prefill_logits"].float().abs().max()),
+               "tokens_seq0": res["tokens"][0].tolist()}
+        emit(row)
+        rows.append(row)
+        for k, n in counts.items():
+            launches[k] += n
+    return rows, launches
+
+
+def transformer_against_cpu(torch):
+    """Phase 5, serving: reduced models in fp32, card vs the port's CPU
+    path from the same weights, prefill and 3 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    for name, cfg in (("zamba2_reduced_g2",
+                       get_config("zamba2-2.7b").reduced(n_layers=4)),
+                      ("fed100m_reduced", get_config("fed100m").reduced())):
+        gen = torch.Generator().manual_seed(0)
+        params = model.init_params(cfg, gen)
+        toks = torch.randint(0, cfg.vocab, (2, 67), generator=gen)
+        outs = {}
+        for where, dev in (("cpu", "cpu"), ("card", "cuda")):
+            p = to(params, dev)
+            with torch.inference_mode():
+                lg, cache = model.prefill(cfg, p, {"tokens": toks[:, :64]
+                                                   .to(dev)}, cache_len=67)
+                seq = [lg]
+                for i in range(64, 67):
+                    lg, cache = model.decode_step(cfg, p, cache,
+                                                  toks[:, i:i + 1].to(dev))
+                    seq.append(lg)
+            outs[where] = torch.stack(seq).float().cpu()
+        err = float((outs["card"] - outs["cpu"]).abs().max())
+        emit({"phase": "reference", "model": name, "prompt": 64,
+              "decode_steps": 3, "logits_max_abs_err": err,
+              "logits_absmax": float(outs["cpu"].abs().max()),
+              "atol": MODEL_ATOL})
+        if not err <= MODEL_ATOL:
+            raise AssertionError(f"{name}: card and CPU logits differ by "
+                                 f"{err}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -440,32 +678,50 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import folb_aggregate as K_mod
     t0 = time.perf_counter()
-    build.load("folb_aggregate")
+    build.load_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln for ln in build.build_logs["folb_aggregate"]
-                    .splitlines() if "registers" in ln or "spill" in ln]})
+          "ptxas": {name: [ln for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name, log in build.build_logs.items()}})
 
     rows, errs = check_kernels(torch, K_mod)
-    launches = main_path(torch, K_mod)
-    for k, n in guard_phase(torch, K_mod).items():
+    attn_rows = check_attention(torch)
+    ssd_rows = check_ssd(torch)
+    launches = main_path(torch)
+    for k, n in guard_phase(torch).items():
+        launches[k] += n
+    _, serve_launches = serve_phase(torch)
+    for k, n in serve_launches.items():
         launches[k] += n
     against_cpu(torch)
+    transformer_against_cpu(torch)
 
     main_row = next(r for r in rows if r["role"] == "lstm"
                     and r["dtype"] == "bfloat16")
-    replaces = {"folb_scores": f"{PALLAS}:119", "folb_apply": f"{PALLAS}:147",
-                "guard_stats": f"{PALLAS}:180"}
     summary = []
-    for name in KERNELS:
+    for name in FOLB_KERNELS:
         m = main_row[name]
         summary.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "shape": {"K": main_row["K"], "D_pad": main_row["D_pad"],
                       "dtype": main_row["dtype"]}})
+    for name, krows, keys in (
+            ("flash_attention", attn_rows,
+             ("B", "S", "H", "KV", "d", "dtype")),
+            ("ssd_scan", ssd_rows, ("B", "S", "H", "P", "N", "dtype"))):
+        m = next(r for r in krows if r["role"] == "zamba2")
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in krows),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"],
+            "shape": {k: m[k] for k in keys}})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

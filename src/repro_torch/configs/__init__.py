@@ -1,1 +1,41 @@
-"""Model hyper-parameter records of the port."""
+"""Config registry: ``get_config(arch_id)`` and ``ARCHS`` (a copy of
+``repro.configs``): the assigned architectures, the paper's own models and
+the ~100M example model."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ArchConfig, n_active_params, n_params  # noqa: F401
+
+# arch-id -> module name under repro_torch.configs
+_MODULES: Dict[str, str] = {
+    "hubert-xlarge": "hubert_xlarge",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "xlstm-1.3b": "xlstm_1p3b",
+    "starcoder2-7b": "starcoder2_7b",
+    "granite-20b": "granite_20b",
+    "gemma-7b": "gemma_7b",
+    # paper's own experiment models (federated validation)
+    "paper-mclr": "paper_models",
+    "paper-mlp": "paper_models",
+    "paper-lstm": "paper_models",
+    # end-to-end ~100M example model
+    "fed100m": "fed100m",
+}
+
+ARCHS: List[str] = [a for a in _MODULES if not a.startswith("paper-")]
+ASSIGNED: List[str] = ARCHS[:10]
+
+
+def get_config(arch: str) -> ArchConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    if arch.startswith("paper-"):
+        return getattr(mod, arch.replace("paper-", "").upper())
+    return mod.CONFIG

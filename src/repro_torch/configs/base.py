@@ -1,0 +1,231 @@
+"""Architecture configuration records (a copy of ``repro.configs.base``).
+
+Every architecture gets one ``<id>.py`` module exporting a module-level
+``CONFIG: ArchConfig`` with the published dimensions.  Configs are plain
+frozen dataclasses; the port imports nothing of the JAX package, so it
+keeps its own copy of these records and of ``n_params``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+# Block kinds understood by repro.models.model
+ATTN = "attn"            # pre-norm attention + dense MLP
+MOE = "moe"              # pre-norm attention + MoE FFN
+MAMBA2 = "mamba2"        # Mamba2 (SSD) block
+SHARED_ATTN = "shared_attn"  # Zamba-style shared-parameter attention block
+MLSTM = "mlstm"          # xLSTM matrix-LSTM block
+SLSTM = "slstm"          # xLSTM scalar-LSTM block
+ENCODER = "encoder"      # bidirectional attention + dense MLP (no causal mask)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    expert_d_ff: int
+    n_shared_experts: int = 0
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # 'tensor': expert d_ff sharded over model axis (works for any n_experts)
+    # 'expert': experts sharded over model axis (requires divisibility)
+    sharding: str = "tensor"
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64          # mamba2 SSD head dim
+    chunk: int = 256            # chunked-scan block length
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 8        # one sLSTM per this many blocks (rest mLSTM)
+    proj_factor: float = 2.0    # mLSTM up-projection factor
+    conv_kernel: int = 4
+    chunk: int = 64             # mLSTM chunked-scan block length (perf knob)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | encoder | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0           # 0 -> d_model // n_heads
+    act: str = "silu"           # silu | gelu | geglu
+    norm: str = "rmsnorm"       # rmsnorm | layernorm
+    rope_theta: float = 10000.0
+    sliding_window: int = 0     # 0 = full attention
+    tie_embeddings: bool = False
+    causal: bool = True
+    # family extras
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    # hybrid (zamba): one shared attn block applied every `shared_attn_every`
+    shared_attn_every: int = 0
+    # modality stub: number of frontend embedding positions (audio frames /
+    # vision patches) prepended to the token sequence.  0 = pure text.
+    frontend_positions: int = 0
+    # provenance
+    source: str = ""
+    # numerics
+    param_dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def supports_decode(self) -> bool:
+        return self.family not in ("encoder", "audio")
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether long_500k decode is admissible (recurrent state and/or
+        sliding-window attention; hybrids allowed per assignment)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.xlstm is not None:
+            return True
+        return self.sliding_window > 0
+
+    def block_pattern(self) -> Tuple[Tuple[str, int], ...]:
+        """Return ((block_kind, repeat), ...) describing the stack as groups
+        of homogeneous scannable blocks.  Heterogeneous stacks (zamba, xlstm)
+        are expressed as repeated super-groups."""
+        if self.family in ("encoder", "audio"):
+            return ((ENCODER, self.n_layers),)
+        if self.family == "moe":
+            return ((MOE, self.n_layers),)
+        if self.family == "hybrid":
+            g = self.shared_attn_every
+            assert g and self.n_layers % g == 0
+            # each super-group: g mamba2 blocks then the shared attn block;
+            # the pattern repeats n_super_groups() times
+            return ((MAMBA2, g), (SHARED_ATTN, 1))
+        if self.xlstm is not None:
+            return ((MLSTM, self.xlstm.slstm_every - 1), (SLSTM, 1))
+        return ((ATTN, self.n_layers),)
+
+    def n_super_groups(self) -> int:
+        """Number of repetitions of block_pattern() needed to realise the
+        full depth (1 for homogeneous stacks)."""
+        if self.family == "hybrid":
+            return self.n_layers // self.shared_attn_every
+        if self.xlstm is not None:
+            return self.n_layers // self.xlstm.slstm_every
+        return 1
+
+    def reduced(self, n_layers: int = 2, d_model: int = 256,
+                max_experts: int = 4, vocab: int = 512) -> "ArchConfig":
+        """Smoke-test variant of the same family (<=512 width, <=4 experts)."""
+        heads = max(1, min(self.n_heads, 4))
+        kv = max(1, min(self.n_kv_heads, heads))
+        hd = d_model // heads if self.head_dim == 0 else min(self.head_dim, 64)
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, max_experts),
+                top_k=min(self.moe.top_k, 2),
+                expert_d_ff=min(self.moe.expert_d_ff, 2 * d_model),
+                n_shared_experts=min(self.moe.n_shared_experts, 1),
+                shared_d_ff=min(self.moe.shared_d_ff, d_model),
+                # ample capacity at smoke scale: capacity drops are a
+                # router-variance artifact on 32-token tests and would make
+                # prefill/decode consistency checks flaky
+                capacity_factor=4.0,
+            )
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=32, chunk=32)
+        xl = None
+        shared_every = 0
+        if self.xlstm is not None:
+            xl = dataclasses.replace(self.xlstm, slstm_every=2)
+            n_layers = max(n_layers, 2)
+        if self.family == "hybrid":
+            shared_every = 2
+            n_layers = max(n_layers, 2)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=n_layers,
+            d_model=d_model,
+            n_heads=heads,
+            n_kv_heads=kv,
+            head_dim=hd,
+            d_ff=min(self.d_ff, 2 * d_model) if self.d_ff else 0,
+            vocab=min(self.vocab, vocab),
+            moe=moe,
+            ssm=ssm,
+            xlstm=xl,
+            shared_attn_every=shared_every,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+            frontend_positions=min(self.frontend_positions, 16),
+            param_dtype="float32",
+        )
+
+
+def n_params(cfg: ArchConfig) -> int:
+    """Analytic parameter count (used for roofline MODEL_FLOPS = 6·N·D)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    emb = cfg.vocab * d * (1 if cfg.tie_embeddings else 2)
+    per_attn = d * (cfg.n_heads * hd) + 2 * d * (cfg.n_kv_heads * hd) \
+        + (cfg.n_heads * hd) * d
+    glu = 3 if cfg.act in ("silu", "geglu") else 2
+    per_mlp = glu * d * cfg.d_ff if cfg.d_ff else 0
+    total = emb
+    if cfg.family in ("dense", "encoder", "vlm", "audio"):
+        total += cfg.n_layers * (per_attn + per_mlp)
+    elif cfg.family == "moe":
+        m = cfg.moe
+        per_moe = m.n_experts * glu * d * m.expert_d_ff \
+            + m.n_shared_experts * glu * d * m.shared_d_ff + d * m.n_experts
+        total += cfg.n_layers * (per_attn + per_moe)
+    elif cfg.family == "hybrid":
+        di = cfg.ssm.expand * d
+        per_mamba = d * (2 * di + 2 * cfg.ssm.d_state + di // cfg.ssm.head_dim) \
+            + di * d + di * cfg.ssm.d_conv
+        n_shared = 1  # parameters of shared block counted once
+        total += cfg.n_layers * per_mamba + n_shared * (per_attn + per_mlp if cfg.d_ff else per_attn + 3 * d * 4 * d)
+    elif cfg.xlstm is not None:
+        di = int(cfg.xlstm.proj_factor * d)
+        nh = cfg.n_heads
+        dh = di // nh
+        # block-diagonal qkv (per head dh x dh), up/down projections
+        per_mlstm = d * 2 * di + 3 * nh * dh * dh + di * 2 * nh + di * d \
+            + cfg.xlstm.conv_kernel * di
+        per_slstm = d * 4 * d + nh * (d // nh) * 4 * (d // nh) + 3 * d * 2 * d
+        k = cfg.xlstm.slstm_every
+        total += (cfg.n_layers // k) * ((k - 1) * per_mlstm + per_slstm)
+    else:  # ssm
+        di = cfg.ssm.expand * d
+        per_mamba = d * (2 * di + 2 * cfg.ssm.d_state + di // cfg.ssm.head_dim) \
+            + di * d + di * cfg.ssm.d_conv
+        total += cfg.n_layers * per_mamba
+    return int(total)
+
+
+def n_active_params(cfg: ArchConfig) -> int:
+    """Active (per-token) params — differs from n_params only for MoE."""
+    if cfg.family != "moe":
+        return n_params(cfg)
+    m = cfg.moe
+    d = cfg.d_model
+    glu = 3 if cfg.act in ("silu", "geglu") else 2
+    all_expert = cfg.n_layers * m.n_experts * glu * d * m.expert_d_ff
+    active_expert = cfg.n_layers * m.top_k * glu * d * m.expert_d_ff
+    return int(n_params(cfg) - all_expert + active_expert)

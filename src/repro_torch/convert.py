@@ -1,12 +1,15 @@
 """Carry the reference's parameters across to the port.
 
-``from_reference`` takes the JAX package's parameter dict as numpy arrays
-(``jax.tree.map(np.asarray, params)``, done by the caller) and returns the
-port's dict of tensors, so both packages can start from identical weights.
+``from_reference`` takes the JAX package's parameter dict of a paper model
+as numpy arrays (``jax.tree.map(np.asarray, params)``, done by the caller)
+and returns the port's dict of tensors; ``from_reference_model`` does the
+same for a transformer-zoo tree, unstacking its layer axes into the lists
+``repro_torch.models.model`` walks.  Both packages then start from
+identical weights.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -19,5 +22,46 @@ def from_reference(params_np: Mapping[str, np.ndarray],
     """Reference parameter dict (numpy leaves) -> dict of tensors on
     ``device`` (``None``: the card), same leaf names, copied."""
     dev = resolve(device)
-    return {k: torch.tensor(np.asarray(v)).to(dev)
-            for k, v in params_np.items()}
+    return {k: _tensor(v, dev) for k, v in params_np.items()}
+
+
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    """numpy array (fp32, int or ml_dtypes bf16) -> a copy on ``dev``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.tensor(a).to(dev)
+
+
+def _map(tree, fn):
+    if isinstance(tree, Mapping):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_reference_model(cfg, params_np: Mapping[str, Any],
+                         device=None) -> Dict[str, Any]:
+    """The reference's ``models.model.init_params`` tree (numpy leaves) ->
+    the port's tree on ``device`` (``None``: the card).
+
+    Stacked ``layers`` (L, ...) become a list of L block dicts, stacked
+    ``mamba`` (G, g, ...) a list of G lists of g; every other subtree
+    (``embed``, ``lm_head``, ``final_norm``, ``shared``) keeps its shape.
+    Linear weights keep the reference's (d_in, d_out) orientation."""
+    dev = resolve(device)
+    out: Dict[str, Any] = {}
+    for key, sub in params_np.items():
+        if key == "layers":
+            out[key] = [_map(sub, lambda a: _tensor(a[i], dev))
+                        for i in range(cfg.n_layers)]
+        elif key == "mamba":
+            out[key] = [[_map(sub, lambda a: _tensor(a[g, j], dev))
+                         for j in range(cfg.shared_attn_every)]
+                        for g in range(cfg.n_super_groups())]
+        elif key in ("mlstm", "slstm"):
+            raise NotImplementedError("the xLSTM topology is not ported yet "
+                                      "(ROADMAP.md queue 1 #16)")
+        else:
+            out[key] = _map(sub, lambda a: _tensor(a, dev))
+    return out

@@ -7,6 +7,7 @@ module (git-ignored).  The library's file name carries a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is; a finished build is moved into place atomically, so
 processes that build at once do not see a half-written file.
+``load_all`` starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
@@ -17,9 +18,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
+SOURCES = ("folb_aggregate", "flash_attention", "ssm_scan")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,6 +78,18 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             path, log = build(name)
-            build_logs[name] = log
+            build_logs.setdefault(name, log)
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def load_all(names: Sequence[str] = SOURCES) -> Dict[str, ctypes.CDLL]:
+    """Load every named library, compiling the missing ones in parallel
+    (one ``nvcc`` process per source, all started together)."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {n: pool.submit(build, n) for n in names}
+        for n, f in futures.items():
+            log = f.result()[1]
+            if log:
+                build_logs[n] = log
+    return {n: load(n) for n in names}

@@ -1,5 +1,11 @@
-"""Buffer- and dict-level entry points of the fused FOLB aggregation
-(``repro.kernels.ops``), single device.
+"""Entry points of the port's kernels (``repro.kernels.ops``), single
+device.
+
+  * ``flash_attention`` (``kernels.flash_attention``) and ``ssd_scan``
+    (``kernels.ssm_scan``): the transformer zoo's two kernels, each with
+    its ``launches`` counter.
+
+The fused FOLB aggregation, buffer- and dict-level:
 
   * ``folb_aggregate_buffers``: pre-raveled flat buffers — fp32 ``(D,)``
     params, bf16-or-fp32 ``(K, D)`` grads/deltas — through the kernels.
@@ -24,10 +30,28 @@ import torch
 
 from repro_torch.core import flat as flat_lib
 from repro_torch.kernels import folb_aggregate as _folb
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.guard import as_guard
+from repro_torch.kernels.ssm_scan import ssd_scan
 
 # default storage dtype of the (K, D) grad/delta buffers (reference ops.py)
 DEFAULT_BUF_DTYPE = torch.bfloat16
+
+
+def reset_launches() -> None:
+    """Zero the launch counter of every kernel of the port."""
+    _folb.reset_launches()
+    flash_attention.launches = 0
+    ssd_scan.launches = 0
+
+
+def launches() -> dict:
+    """Each kernel's launch count since the last ``reset_launches``."""
+    return {"folb_scores": _folb.folb_scores.launches,
+            "folb_apply": _folb.folb_apply.launches,
+            "guard_stats": _folb.guard_stats.launches,
+            "flash_attention": flash_attention.launches,
+            "ssd_scan": ssd_scan.launches}
 
 
 def _no_mesh(mesh) -> None:

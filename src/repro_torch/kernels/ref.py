@@ -1,9 +1,10 @@
-"""Plain PyTorch oracles of the fused FOLB aggregation
-(``repro.kernels.ref``): ``folb_aggregate_ref`` and
-``folb_aggregate_stale_ref``."""
+"""Plain PyTorch oracles of the port's kernels (``repro.kernels.ref``):
+``folb_aggregate_ref`` and ``folb_aggregate_stale_ref`` for the fused FOLB
+aggregation, ``flash_attention_ref`` for attention and ``ssm_scan_ref`` for
+the SSD recurrence."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,3 +42,54 @@ def folb_aggregate_stale_ref(w: torch.Tensor, deltas: torch.Tensor,
     denom = torch.clamp(scores.abs().sum(), min=1e-30)
     upd = (scores / denom) @ deltas.float()
     return (w.float() + upd).to(w.dtype), scores
+
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        sliding_window: int = 0) -> torch.Tensor:
+    """Reference attention.  q: (B, Sq, H, d); k/v: (B, Sk, KV, d) with
+    H % KV == 0 (GQA: q head h reads kv head h // (H // KV)).  fp32
+    softmax over scores masked with -1e30; output in q's dtype."""
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, d)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
+                          k.float()) / (d ** 0.5)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if sliding_window:
+        mask &= kpos > qpos - sliding_window
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.float())
+    return out.reshape(B, Sq, H, d).to(q.dtype)
+
+
+def ssm_scan_ref(x: torch.Tensor, loga: torch.Tensor, w: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential reference of the SSD recurrence (single head group).
+
+    x: (S, H, P); loga/w: (S, H); Bm/Cm: (S, N); h0: (H, P, N).
+    h_t = exp(loga_t) h_{t-1} + w_t B_t x_t^T;  y_t = C_t · h_t.
+    Returns (y (S, H, P), h_S (H, P, N)), all fp32."""
+    S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros((H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    x, loga, w = x.float(), loga.float(), w.float()
+    Bm, Cm = Bm.float(), Cm.float()
+    ys = []
+    for t in range(S):
+        h = (h * torch.exp(loga[t])[:, None, None]
+             + w[t][:, None, None] * torch.einsum("hp,n->hpn", x[t], Bm[t]))
+        ys.append(torch.einsum("n,hpn->hp", Cm[t], h))
+    return torch.stack(ys), h

@@ -1,1 +1,3 @@
-"""The paper's small models, batched over a leading client axis."""
+"""The paper's small models, batched over a leading client axis
+(``small``), and the transformer zoo: ``layers``, ``attention``, ``ssm``
+and their assembly ``model``."""

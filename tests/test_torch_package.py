@@ -28,7 +28,12 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 def test_port_imports_no_jax_and_no_reference():
     code = ("import sys; import repro_torch.fed, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.sysmodel.scenario, "
-            "repro_torch.kernels.guard; bad = sorted(m for m in sys.modules "
+            "repro_torch.kernels.guard, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.ssm_scan, repro_torch.models.model, "
+            "repro_torch.launch.serve, repro_torch.launch.profile_serve, "
+            "repro_torch.configs; "
+            "import repro_torch.configs as c; [c.get_config(a) for a in "
+            "c.ARCHS]; bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); print(bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(SRC))
