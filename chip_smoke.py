@@ -25,10 +25,16 @@ before the result line:
                 version at the Zamba2 prefill shape (bf16), fed100m's
                 (fp32), GQA with a sliding window, a ragged S, non-causal
                 and a 256-wide head; ``ssd_scan`` at Zamba2's full width, the
-                reduced shape and S = chunk, y and the final state both
-                checked; times as in phase 3 (the library call for
-                attention is ``scaled_dot_product_attention``; none computes
-                the scan).
+                reduced shape, S = chunk and the largest state (N = 128) at
+                P = 64, 384 and 1024, y and the final state both checked;
+                ``slstm_scan`` at xLSTM-1.3B's sLSTM shape (B 4, S 512, H 4,
+                dh 512) in bf16 and fp32, at a prime S and at the reduced
+                width, out and the final (h, c, n) both checked; times as in
+                phase 3 (the library call for attention is
+                ``scaled_dot_product_attention``; none computes either
+                scan).  And the time of the plain ``ssd_chunked`` at the
+                xLSTM mLSTM's shape (P = 1025, N = 1024), which
+                ``ssd_scan`` must refuse.
   4. main path -- ``repro_torch.fed.run`` on the card: MCLR on
                 Synthetic(1,1) with the quickstart config (20 rounds), the
                 paper LSTM at full width on char_stream (3 rounds), and the
@@ -43,18 +49,20 @@ before the result line:
                 finite and within 0.05 test accuracy of the clean run.  One
                 corrupted round through ``fed.simulator.fl_round`` must
                 count each NaN row that arrived as non-finite.
-  4c. serve  -- ``repro_torch.launch.serve.main`` on Zamba2-2.7B at full
-                width and depth (bf16, batch 4, prompt 512, 16 greedy
-                tokens), then fed100m: prefill seconds, decode tokens/s,
-                finite logits; the counters, zeroed just before, must read 9
-                ``flash_attention`` and 54 ``ssd_scan`` launches for Zamba2
-                (12 and 0 for fed100m) after the prefill and the 15 decode
-                steps, so decode launches none.
+  4c. serve  -- ``repro_torch.launch.serve.main`` on xLSTM-1.3B and
+                Zamba2-2.7B at full width and depth (bf16, batch 4, prompt
+                512, 16 greedy tokens), then fed100m: prefill seconds,
+                decode tokens/s, finite logits; the counters, zeroed just
+                before, must read 6 ``slstm_scan`` launches for xLSTM (its
+                mLSTM recurrence is the plain ``ssd_chunked``), 9
+                ``flash_attention`` and 54 ``ssd_scan`` for Zamba2, and 12
+                ``flash_attention`` for fed100m, after the prefill and the
+                15 decode steps, so decode launches none.
   5. reference -- the card's runs agree with the port's plain CPU path on
                 small inputs (MCLR and a narrow LSTM, fp32 buffers), clean
-                and guarded under a failure scenario; and reduced Zamba2
-                (two super-groups) and fed100m prefill + 3 decode steps in
-                fp32.
+                and guarded under a failure scenario; and reduced xLSTM and
+                Zamba2 (two super-groups each) and fed100m prefill + 3
+                decode steps in fp32.
 
 The last lines are the kernels summary, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
@@ -75,9 +83,14 @@ REF_ATOL = 1e-5               # card vs CPU run, fp32 buffers, few rounds
 RESILIENCE_TOL = 0.05         # guarded vs clean final test accuracy
 GUARD_KW = {"nonfinite": True, "clip_mult": 5.0, "gate_mult": 20.0}
 FOLB_KERNELS = ("folb_scores", "folb_apply", "guard_stats")
-KERNELS = FOLB_KERNELS + ("flash_attention", "ssd_scan")
+KERNELS = FOLB_KERNELS + ("flash_attention", "ssd_scan", "slstm_scan")
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # the reference's bounds
 SSD_ATOL, SSD_RTOL = 2e-4, 1e-4   # step-by-step vs chunked fp32 rounding
+# slstm_scan vs plain: the same fp32 recurrence, products summed in another
+# order; out (|h| <= 1) in bf16 within two bf16 ulps at unit scale, where
+# one rounding of h may land either side; states within 1e-4
+SLSTM_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-4}
+SLSTM_STATE_TOL = 1e-4
 MODEL_ATOL = 1e-4                 # card vs CPU logits, fp32, unit scale
 
 PALLAS = "src/repro/kernels/folb_aggregate.py"
@@ -85,11 +98,13 @@ SOURCE = "src/repro_torch/kernels/csrc/folb_aggregate.cu"
 REPLACES = {"folb_scores": f"{PALLAS}:119", "folb_apply": f"{PALLAS}:147",
             "guard_stats": f"{PALLAS}:180",
             "flash_attention": "src/repro/kernels/flash_attention.py:101",
-            "ssd_scan": "src/repro/kernels/ssm_scan.py:73"}
+            "ssd_scan": "src/repro/kernels/ssm_scan.py:73",
+            "slstm_scan": "src/repro/kernels/slstm_scan.py:76"}
 SOURCES = {"folb_scores": SOURCE, "folb_apply": SOURCE, "guard_stats": SOURCE,
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "ssd_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu"}
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+           "slstm_scan": "src/repro_torch/kernels/csrc/slstm_scan.cu"}
 
 
 def emit(obj) -> None:
@@ -525,10 +540,14 @@ def check_ssd(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import ssm_scan as ss
     # (role, B, S, H, P, N, chunk): Zamba2 at full width, the reduced
-    # model, S = chunk
+    # model, S = chunk, and N = 128 with the rows of a head on 1, 2 and 4
+    # blocks
     cases = [("zamba2", 4, 512, 80, 64, 64, 256),
              ("reduced", 2, 64, 16, 32, 16, 32),
-             ("s_eq_chunk", 4, 256, 80, 64, 64, 256)]
+             ("s_eq_chunk", 4, 256, 80, 64, 64, 256),
+             ("n128_p64", 2, 256, 4, 64, 128, 64),
+             ("n128_p384", 2, 256, 4, 384, 128, 64),
+             ("n128_p1024", 2, 256, 4, 1024, 128, 64)]
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2)
     rows = []
@@ -566,6 +585,92 @@ def check_ssd(torch):
     return rows
 
 
+def check_slstm(torch):
+    """Phase 3b, sLSTM: the kernel against its plain version, out and the
+    final (h, c, n)."""
+    from repro_torch.kernels import slstm_scan as sl
+    from repro_torch.kernels.ref import slstm_scan_ref
+    # (role, B, S, H, dh, dtype): xLSTM-1.3B's sLSTM in bf16 (the serving
+    # dtype) and fp32, a prime S at full width, the reduced model
+    cases = [("xlstm", 4, 512, 4, 512, "bfloat16"),
+             ("xlstm_fp32", 4, 512, 4, 512, "float32"),
+             ("prime_s", 4, 127, 4, 512, "float32"),
+             ("reduced", 2, 64, 4, 64, "float32")]
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    rows = []
+    for role, B, S, H, dh, dname in cases:
+        dt = getattr(torch, dname)
+        xg = torch.randn((B, S, 4 * H * dh), generator=gen).to(dev, dt)
+        r = (torch.randn((H, dh, 4 * dh), generator=gen)
+             * dh ** -0.5).to(dev, dt)
+        out, state = sl.slstm_scan(xg, r, H)
+        want, want_state = slstm_scan_ref(xg, r, H)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        errs_state = [float((a - b).abs().max())
+                      for a, b in zip(state, want_state)]
+        if not (err <= SLSTM_TOL[dname]
+                and max(errs_state) <= SLSTM_STATE_TOL):
+            raise AssertionError(f"slstm_scan {role}: out error {err}, "
+                                 f"(h, c, n) errors {errs_state}")
+        eb = xg.element_size()
+        # each input read once, each output written once; the operations
+        # are the per-step matrix-vector products, 2 B S H dh 4dh, in fp32
+        n_bytes = (eb * (B * S * 4 * H * dh + B * S * H * dh)
+                   + r.element_size() * H * dh * 4 * dh + 3 * 4 * B * H * dh)
+        bound, by = bound_ms(n_bytes, 2 * B * S * H * dh * 4 * dh)
+        row = {"phase": "kernel", "kernel": "slstm_scan", "role": role,
+               "B": B, "S": S, "H": H, "dh": dh, "d": H * dh,
+               "dtype": dname, "max_abs_err": err,
+               "max_abs_err_h_c_n": errs_state,
+               "atol": SLSTM_TOL[dname], "atol_state": SLSTM_STATE_TOL,
+               "c_absmax": float(want_state[1].abs().max()),
+               "ms": device_ms(torch, lambda: sl.slstm_scan(xg, r, H),
+                               per_batch=2, batches=10),
+               "plain_ms": device_ms(torch, lambda: slstm_scan_ref(
+                   xg, r, H), per_batch=1, batches=5),
+               "library_ms": None, "library": None,
+               "bound_ms": bound, "bound_by": by}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def time_mlstm_ssd(torch):
+    """Phase 3b, the mLSTM's recurrence: the plain ``ssd_chunked`` at
+    xLSTM-1.3B's mLSTM shape (B 4, S 512, H = G = 4, P = dh + 1 = 1025,
+    N = dh = 1024, chunk 64), which the model calls directly since
+    ``ssd_scan`` does not take it; the kernel must refuse the shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssm_scan as ss
+    B, S, H, dh, chunk = 4, 512, 4, 1024, 64
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((B, S, H, dh + 1), generator=gen).to(dev)
+    loga = F.logsigmoid(torch.randn((B, S, H), generator=gen)).to(dev)
+    w = torch.sigmoid(torch.randn((B, S, H), generator=gen)).to(dev)
+    k = (torch.randn((B, S, H, dh), generator=gen) * dh ** -0.5).to(dev)
+    q = torch.randn((B, S, H, dh), generator=gen).to(dev)
+    try:
+        ss.ssd_scan(x, loga, w, k, q, chunk)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ssd_scan took the mLSTM shape")
+    y, h = ss.ssd_chunked(x, loga, w, k, q, chunk)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())):
+        raise AssertionError("ssd_chunked at the mLSTM shape: not finite")
+    row = {"phase": "plain", "fn": "ssd_chunked", "role": "mlstm", "B": B,
+           "S": S, "H": H, "P": dh + 1, "N": dh, "chunk": chunk,
+           "dtype": "float32",
+           "ms": _timed(torch, lambda: ss.ssd_chunked(x, loga, w, k, q,
+                                                      chunk))}
+    emit(row)
+    return row
+
+
 def serve_phase(torch):
     """Phase 4c: the serve launcher at full width and depth."""
     from repro_torch.configs import n_params
@@ -573,7 +678,8 @@ def serve_phase(torch):
     B, S, G = 4, 512, 16
     launches = {name: 0 for name in KERNELS}
     rows = []
-    for arch, want in (("zamba2-2.7b", {"flash_attention": 9,
+    for arch, want in (("xlstm-1.3b", {"slstm_scan": 6}),
+                       ("zamba2-2.7b", {"flash_attention": 9,
                                         "ssd_scan": 54}),
                        ("fed100m", {"flash_attention": 12})):
         torch.cuda.reset_peak_memory_stats()
@@ -623,7 +729,9 @@ def transformer_against_cpu(torch):
             return [to(v, dev) for v in tree]
         return tree.to(dev)
 
-    for name, cfg in (("zamba2_reduced_g2",
+    for name, cfg in (("xlstm_reduced_g2",
+                       get_config("xlstm-1.3b").reduced(n_layers=4)),
+                      ("zamba2_reduced_g2",
                        get_config("zamba2-2.7b").reduced(n_layers=4)),
                       ("fed100m_reduced", get_config("fed100m").reduced())):
         gen = torch.Generator().manual_seed(0)
@@ -687,6 +795,8 @@ def main() -> int:
     rows, errs = check_kernels(torch, K_mod)
     attn_rows = check_attention(torch)
     ssd_rows = check_ssd(torch)
+    slstm_rows = check_slstm(torch)
+    time_mlstm_ssd(torch)
     launches = main_path(torch)
     for k, n in guard_phase(torch).items():
         launches[k] += n
@@ -712,8 +822,9 @@ def main() -> int:
     for name, krows, keys in (
             ("flash_attention", attn_rows,
              ("B", "S", "H", "KV", "d", "dtype")),
-            ("ssd_scan", ssd_rows, ("B", "S", "H", "P", "N", "dtype"))):
-        m = next(r for r in krows if r["role"] == "zamba2")
+            ("ssd_scan", ssd_rows, ("B", "S", "H", "P", "N", "dtype")),
+            ("slstm_scan", slstm_rows, ("B", "S", "H", "dh", "dtype"))):
+        m = next(r for r in krows if r["role"] in ("zamba2", "xlstm"))
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

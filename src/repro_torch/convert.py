@@ -45,23 +45,24 @@ def from_reference_model(cfg, params_np: Mapping[str, Any],
     """The reference's ``models.model.init_params`` tree (numpy leaves) ->
     the port's tree on ``device`` (``None``: the card).
 
-    Stacked ``layers`` (L, ...) become a list of L block dicts, stacked
-    ``mamba`` (G, g, ...) a list of G lists of g; every other subtree
-    (``embed``, ``lm_head``, ``final_norm``, ``shared``) keeps its shape.
-    Linear weights keep the reference's (d_in, d_out) orientation."""
+    Stacked ``layers`` (L, ...) and ``slstm`` (G, ...) become lists of
+    block dicts, stacked ``mamba`` and ``mlstm`` (G, g, ...) lists of G
+    lists of g; every other subtree (``embed``, ``lm_head``,
+    ``final_norm``, ``shared``) keeps its shape.  Linear weights keep the
+    reference's (d_in, d_out) orientation."""
     dev = resolve(device)
     out: Dict[str, Any] = {}
     for key, sub in params_np.items():
-        if key == "layers":
+        if key in ("layers", "slstm"):
+            n = cfg.n_layers if key == "layers" else cfg.n_super_groups()
             out[key] = [_map(sub, lambda a: _tensor(a[i], dev))
-                        for i in range(cfg.n_layers)]
-        elif key == "mamba":
-            out[key] = [[_map(sub, lambda a: _tensor(a[g, j], dev))
-                         for j in range(cfg.shared_attn_every)]
-                        for g in range(cfg.n_super_groups())]
-        elif key in ("mlstm", "slstm"):
-            raise NotImplementedError("the xLSTM topology is not ported yet "
-                                      "(ROADMAP.md queue 1 #16)")
+                        for i in range(n)]
+        elif key in ("mamba", "mlstm"):
+            g = (cfg.shared_attn_every if key == "mamba"
+                 else cfg.xlstm.slstm_every - 1)
+            out[key] = [[_map(sub, lambda a: _tensor(a[i, j], dev))
+                         for j in range(g)]
+                        for i in range(cfg.n_super_groups())]
         else:
             out[key] = _map(sub, lambda a: _tensor(a, dev))
     return out

@@ -22,7 +22,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
-SOURCES = ("folb_aggregate", "flash_attention", "ssm_scan")
+SOURCES = ("folb_aggregate", "flash_attention", "ssm_scan",
+           "slstm_scan")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -26,11 +26,15 @@
 // the card runs only B*H*P threads (20,480 at the Zamba2 serving shape).
 //
 // Design:
-//   * One block per (batch, head), one thread per row p (P rounded up to
-//     a warp).  Steps are walked in tiles of kSteps: the tile's x[., p],
-//     B, C, exp(loga) and w are staged in shared memory with coalesced
-//     loads, then every thread runs the tile's steps from shared memory
-//     (B and C reads are broadcasts).
+//   * One thread per row p.  The rows of a (batch, head) are split over
+//     blocks of at most kMaxRows threads (blockIdx.y picks the slice), so
+//     that a thread's N state registers fit at any P up to 1024: at N = 128
+//     ptxas gives a thread up to about 170 registers, and 65,536 registers
+//     hold 384 such threads, not 1024.  Rows never interact, so nothing
+//     crosses blocks.  Steps are walked in tiles of kSteps: the tile's
+//     x[., p] for the block's rows, B, C, exp(loga) and w are staged in
+//     shared memory with coalesced loads, then every thread runs the tile's
+//     steps from shared memory (B and C reads are broadcasts).
 //   * B and C are read at group g = h / (H / G), so the model's B and C,
 //     shared by all heads (G = 1), are read once per head and never
 //     broadcast into a per-head copy.
@@ -44,25 +48,26 @@
 namespace {
 
 constexpr int kSteps = 32;          // steps staged per tile
+constexpr int kMaxRows = 256;       // state rows (threads) per block
 
-inline size_t smem_floats(int P, int N) {
-  return (size_t)kSteps * (P + 2 * N + 2);
+inline size_t smem_floats(int rows, int N) {
+  return (size_t)kSteps * (rows + 2 * N + 2);
 }
 
 // x: (Bt, S, H, P); loga, w: (Bt, S, H); Bm, Cm: (Bt, S, G, N);
 // y: (Bt, S, H, P); h_out: (Bt, H, P, N); all fp32, contiguous.
+// Grid (Bt * H, ceil(P / blockDim.x)); block y owns rows
+// [blockIdx.y * blockDim.x, ...) of head blockIdx.x.
 template <int N>
-__global__ void ssd_scan_kernel(const float* __restrict__ x,
-                                const float* __restrict__ loga,
-                                const float* __restrict__ w,
-                                const float* __restrict__ Bm,
-                                const float* __restrict__ Cm,
-                                float* __restrict__ y,
-                                float* __restrict__ h_out,
-                                int S, int H, int P, int G) {
+__global__ void __launch_bounds__(kMaxRows)
+ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ loga,
+                const float* __restrict__ w, const float* __restrict__ Bm,
+                const float* __restrict__ Cm, float* __restrict__ y,
+                float* __restrict__ h_out, int S, int H, int P, int G) {
   extern __shared__ float smem[];
-  float* sX = smem;                     // [kSteps][P]
-  float* sB = sX + kSteps * P;          // [kSteps][N]
+  const int rows = blockDim.x;
+  float* sX = smem;                     // [kSteps][rows]
+  float* sB = sX + kSteps * rows;       // [kSteps][N]
   float* sC = sB + kSteps * N;          // [kSteps][N]
   float* sDecay = sC + kSteps * N;      // [kSteps]  exp(loga)
   float* sW = sDecay + kSteps;          // [kSteps]
@@ -71,8 +76,9 @@ __global__ void ssd_scan_kernel(const float* __restrict__ x,
   const int b = bh / H;
   const int hd = bh - b * H;
   const int g = hd / (H / G);
-  const int p = threadIdx.x;
-  const int nthreads = blockDim.x;
+  const int p0 = blockIdx.y * rows;
+  const int np = min(rows, P - p0);     // rows of this block that exist
+  const int p = p0 + threadIdx.x;
 
   float h[N];
 #pragma unroll
@@ -81,18 +87,19 @@ __global__ void ssd_scan_kernel(const float* __restrict__ x,
   for (int t0 = 0; t0 < S; t0 += kSteps) {
     const int nt = min(kSteps, S - t0);
     __syncthreads();   // the previous tile's reads are done
-    for (int i = threadIdx.x; i < nt * P; i += nthreads) {
-      const int r = i / P, c = i - r * P;
-      sX[i] = x[((static_cast<long long>(b) * S + t0 + r) * H + hd) * P + c];
+    for (int i = threadIdx.x; i < nt * np; i += rows) {
+      const int r = i / np, c = i - r * np;
+      sX[r * rows + c] =
+          x[((static_cast<long long>(b) * S + t0 + r) * H + hd) * P + p0 + c];
     }
-    for (int i = threadIdx.x; i < nt * N; i += nthreads) {
+    for (int i = threadIdx.x; i < nt * N; i += rows) {
       const int r = i / N, c = i - r * N;
       const long long at = ((static_cast<long long>(b) * S + t0 + r) * G + g)
                            * N + c;
       sB[i] = Bm[at];
       sC[i] = Cm[at];
     }
-    for (int r = threadIdx.x; r < nt; r += nthreads) {
+    for (int r = threadIdx.x; r < nt; r += rows) {
       const long long at = (static_cast<long long>(b) * S + t0 + r) * H + hd;
       sDecay[r] = expf(loga[at]);
       sW[r] = w[at];
@@ -101,7 +108,7 @@ __global__ void ssd_scan_kernel(const float* __restrict__ x,
     if (p < P) {
       for (int r = 0; r < nt; ++r) {
         const float decay = sDecay[r];
-        const float wx = sW[r] * sX[r * P + p];
+        const float wx = sW[r] * sX[r * rows + threadIdx.x];
         const float* Br = sB + r * N;
         const float* Cr = sC + r * N;
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -126,13 +133,15 @@ template <int N>
 cudaError_t launch(const float* x, const float* loga, const float* w,
                    const float* Bm, const float* Cm, float* y, float* h_out,
                    int Bt, int S, int H, int P, int G, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(P, N);
+  const int p_warps = (P + 31) / 32 * 32;    // P rounded up to a warp
+  const int rows = p_warps < kMaxRows ? p_warps : kMaxRows;
+  const size_t smem = sizeof(float) * smem_floats(rows, N);
   cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int threads = (P + 31) / 32 * 32;
-  ssd_scan_kernel<N><<<Bt * H, threads, smem, stream>>>(
+  const dim3 grid(Bt * H, (P + rows - 1) / rows);
+  ssd_scan_kernel<N><<<grid, rows, smem, stream>>>(
       x, loga, w, Bm, Cm, y, h_out, S, H, P, G);
   return cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 """Entry points of the port's kernels (``repro.kernels.ops``), single
 device.
 
-  * ``flash_attention`` (``kernels.flash_attention``) and ``ssd_scan``
-    (``kernels.ssm_scan``): the transformer zoo's two kernels, each with
-    its ``launches`` counter.
+  * ``flash_attention`` (``kernels.flash_attention``), ``ssd_scan``
+    (``kernels.ssm_scan``) and ``slstm_scan`` (``kernels.slstm_scan``): the
+    transformer zoo's three kernels, each with its ``launches`` counter.
 
 The fused FOLB aggregation, buffer- and dict-level:
 
@@ -32,6 +32,7 @@ from repro_torch.core import flat as flat_lib
 from repro_torch.kernels import folb_aggregate as _folb
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.guard import as_guard
+from repro_torch.kernels.slstm_scan import slstm_scan
 from repro_torch.kernels.ssm_scan import ssd_scan
 
 # default storage dtype of the (K, D) grad/delta buffers (reference ops.py)
@@ -43,6 +44,7 @@ def reset_launches() -> None:
     _folb.reset_launches()
     flash_attention.launches = 0
     ssd_scan.launches = 0
+    slstm_scan.launches = 0
 
 
 def launches() -> dict:
@@ -51,7 +53,8 @@ def launches() -> dict:
             "folb_apply": _folb.folb_apply.launches,
             "guard_stats": _folb.guard_stats.launches,
             "flash_attention": flash_attention.launches,
-            "ssd_scan": ssd_scan.launches}
+            "ssd_scan": ssd_scan.launches,
+            "slstm_scan": slstm_scan.launches}
 
 
 def _no_mesh(mesh) -> None:

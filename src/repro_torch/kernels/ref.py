@@ -1,7 +1,8 @@
 """Plain PyTorch oracles of the port's kernels (``repro.kernels.ref``):
 ``folb_aggregate_ref`` and ``folb_aggregate_stale_ref`` for the fused FOLB
-aggregation, ``flash_attention_ref`` for attention and ``ssm_scan_ref`` for
-the SSD recurrence."""
+aggregation, ``flash_attention_ref`` for attention, ``ssm_scan_ref`` for
+the SSD recurrence, and ``slstm_scan_ref`` (one ``slstm_cell`` per step)
+for the sLSTM recurrence."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -93,3 +94,37 @@ def ssm_scan_ref(x: torch.Tensor, loga: torch.Tensor, w: torch.Tensor,
              + w[t][:, None, None] * torch.einsum("hp,n->hpn", x[t], Bm[t]))
         ys.append(torch.einsum("n,hpn->hp", Cm[t], h))
     return torch.stack(ys), h
+
+
+def slstm_cell(xg: torch.Tensor, r: torch.Tensor, h: torch.Tensor,
+               c: torch.Tensor, n: torch.Tensor):
+    """One sLSTM step (``repro.models.xlstm._slstm_cell``).  xg: (B, 4d)
+    input part, its 4d axis [z, i, f, o] x (H, dh); r: (H, dh, 4dh);
+    h/c/n: (B, d) fp32.  g = xg + h @ r_h in fp32 -> new (h, c, n)."""
+    B, d = h.shape
+    H, dh = r.shape[0], r.shape[1]
+    rec = torch.einsum("bhd,hdk->bhk", h.reshape(B, H, dh), r.float())
+    rec = rec.reshape(B, H, 4, dh).transpose(1, 2).reshape(B, 4 * d)
+    g = xg.float() + rec
+    zt, it, ft, ot = torch.chunk(g, 4, dim=-1)
+    z, i, f, o = (torch.tanh(zt), torch.sigmoid(it), torch.sigmoid(ft),
+                  torch.sigmoid(ot))
+    c = f * c + i * z
+    n = f * n + i
+    return o * c / torch.clamp(n, min=1e-6), c, n
+
+
+def slstm_scan_ref(xg: torch.Tensor, r: torch.Tensor, n_heads: int):
+    """The sLSTM recurrence over the sequence from zero state, one
+    ``slstm_cell`` per step.  xg: (B, S, 4d); r: (H, dh, 4dh) with H =
+    n_heads.  Returns (out (B, S, d) in xg's dtype, final (h, c, n) fp32)."""
+    B, S, d4 = xg.shape
+    if r.shape[0] != n_heads:
+        raise ValueError(f"r has {r.shape[0]} heads, not {n_heads}")
+    h, c, n = (torch.zeros((B, d4 // 4), dtype=torch.float32,
+                           device=xg.device) for _ in range(3))
+    hs = []
+    for t in range(S):
+        h, c, n = slstm_cell(xg[:, t], r, h, c, n)
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(xg.dtype), (h, c, n)

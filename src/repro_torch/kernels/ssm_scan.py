@@ -12,7 +12,9 @@ x ``(B, S, H, P)``, loga/w ``(B, S, H)``, B/C ``(B, S, G, N)`` with G = 1
 ``(BH, S, P)`` inputs are the case B = BH, H = G = 1.
 
 The kernel walks the steps in order with the ``(P, N)`` state in
-registers; the plain version works chunk by chunk (``chunk`` divides S).
+registers, one thread per state row, the rows of a head split over blocks
+of at most 256 threads; the plain version works chunk by chunk (``chunk``
+divides S).
 Both compute the same function, rounded in different orders.
 
 Dispatch: given CPU tensors the wrapper runs the plain version, and only

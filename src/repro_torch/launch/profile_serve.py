@@ -5,7 +5,7 @@ prints one JSON line per phase with the wall time, the device time, their
 ratio (the device's busy share) and the heaviest kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      --arch zamba2-2.7b
+      --arch zamba2-2.7b      (or xlstm-1.3b, fed100m, ...)
 
 at the serving shape of ``chip_smoke.py``: batch 4, prompt 512, 4 decode
 steps.

@@ -4,6 +4,8 @@ model.  Runs on the card unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
       --batch 4 --prompt-len 512 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --batch 4 --prompt-len 512 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch fed100m \\
       --reduced --device cpu
 

@@ -1,20 +1,23 @@
 """Model assembly of the transformer zoo (``repro.models.model``): init,
-full-sequence forward, prefill and decode, for two stack topologies:
+full-sequence forward, prefill and decode, for three stack topologies:
 
   * homogeneous -- dense stacks of ``ATTN`` blocks (pre-norm attention +
                    MLP): fed100m, StarCoder2, Gemma, Granite, DeepSeek-Coder.
   * hybrid      -- Zamba2: per super-group ``shared_attn_every`` Mamba2
                    blocks, then ONE shared-parameter attention + MLP block.
+  * xlstm       -- xLSTM: per super-group ``slstm_every - 1`` mLSTM blocks,
+                   then one sLSTM block.
 
 Parameters are the reference's tree with its stacked layer axes unstacked
 into lists: ``params["layers"][l]`` (homogeneous), ``params["mamba"][g][j]``
-and ``params["shared"]`` (hybrid).  Caches mirror that, with lists for the
+and ``params["shared"]`` (hybrid), ``params["mlstm"][g][j]`` and
+``params["slstm"][g]`` (xlstm).  Caches mirror that, with lists for the
 stacked axes and ``pos`` a Python int.  Prefill and decode write the
-KV caches in place.
+KV caches in place; decode replaces the recurrent states.
 
 Not ported yet (raise ``NotImplementedError``, ROADMAP.md queue 1 #16):
-the MoE and xLSTM topologies, the encoder/audio and vision frontends, and
-the int8 KV cache (``quantize_kv``).
+the MoE topology, the encoder/audio and vision frontends, and the int8 KV
+cache (``quantize_kv``).
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA2, SHARED_ATTN, ArchConfig
-from repro_torch.models import attention, layers, ssm
+from repro_torch.configs.base import (ATTN, MAMBA2, MLSTM, SHARED_ATTN,
+                                      SLSTM, ArchConfig)
+from repro_torch.models import attention, layers, ssm, xlstm
 
 Params = Dict[str, Any]
 
@@ -39,9 +43,7 @@ def topology(cfg: ArchConfig) -> str:
 def _check_supported(cfg: ArchConfig) -> None:
     """Raise on what the port does not run yet."""
     missing = None
-    if topology(cfg) == "xlstm":
-        missing = "the xLSTM topology"
-    elif cfg.family == "moe":
+    if cfg.family == "moe":
         missing = "the MoE topology"
     elif cfg.family in ("encoder", "audio"):
         missing = "the encoder/audio topology"
@@ -65,6 +67,12 @@ def _init_block(cfg: ArchConfig, kind: str, gen) -> Params:
     if kind == MAMBA2:
         return {"norm": layers.init_norm(cfg, gen, cfg.d_model),
                 "mamba": ssm.init_mamba2(cfg, gen)}
+    if kind == MLSTM:
+        return {"norm": layers.init_norm(cfg, gen, cfg.d_model),
+                "mlstm": xlstm.init_mlstm(cfg, gen)}
+    if kind == SLSTM:
+        return {"norm": layers.init_norm(cfg, gen, cfg.d_model),
+                "slstm": xlstm.init_slstm(cfg, gen)}
     raise ValueError(kind)
 
 
@@ -77,13 +85,19 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.init_linear(cfg, gen, cfg.d_model,
                                                cfg.vocab)
-    if topology(cfg) == "homo":
+    topo, G = topology(cfg), cfg.n_super_groups()
+    if topo == "homo":
         params["layers"] = [_init_block(cfg, ATTN, gen)
                             for _ in range(cfg.n_layers)]
+    elif topo == "xlstm":
+        params["mlstm"] = [[_init_block(cfg, MLSTM, gen)
+                            for _ in range(cfg.xlstm.slstm_every - 1)]
+                           for _ in range(G)]
+        params["slstm"] = [_init_block(cfg, SLSTM, gen) for _ in range(G)]
     else:
         params["mamba"] = [[_init_block(cfg, MAMBA2, gen)
                             for _ in range(cfg.shared_attn_every)]
-                           for _ in range(cfg.n_super_groups())]
+                           for _ in range(G)]
         params["shared"] = _init_block(cfg, SHARED_ATTN, gen)
     return params
 
@@ -107,6 +121,12 @@ def _apply_block(cfg, kind: str, p: Params, x: torch.Tensor
     if kind == MAMBA2:
         return x + ssm.mamba2_forward(
             cfg, p["mamba"], layers.apply_norm(cfg, p["norm"], x))
+    if kind == MLSTM:
+        return x + xlstm.mlstm_forward(
+            cfg, p["mlstm"], layers.apply_norm(cfg, p["norm"], x))
+    if kind == SLSTM:
+        return x + xlstm.slstm_forward(
+            cfg, p["slstm"], layers.apply_norm(cfg, p["norm"], x))
     raise ValueError(kind)
 
 
@@ -116,9 +136,16 @@ def backbone(cfg: ArchConfig, params: Params, h: torch.Tensor
              ) -> torch.Tensor:
     """Apply the full layer stack. h: (B, S, d) -> (B, S, d)."""
     _check_supported(cfg)
-    if topology(cfg) == "homo":
+    topo = topology(cfg)
+    if topo == "homo":
         for lp in params["layers"]:
             h = _apply_block(cfg, ATTN, lp, h)
+        return h
+    if topo == "xlstm":
+        for group, sp in zip(params["mlstm"], params["slstm"]):
+            for lp in group:
+                h = _apply_block(cfg, MLSTM, lp, h)
+            h = _apply_block(cfg, SLSTM, sp, h)
         return h
     for group in params["mamba"]:
         for lp in group:
@@ -156,13 +183,20 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     kv = lambda: attention.init_kv_cache(cfg, batch, C, device=device,
                                          quantize=quantize_kv)
     cache: Dict[str, Any] = {"pos": 0}
-    if topology(cfg) == "homo":
+    topo, G = topology(cfg), cfg.n_super_groups()
+    if topo == "homo":
         cache["kv"] = [kv() for _ in range(cfg.n_layers)]
+    elif topo == "xlstm":
+        cache["mlstm"] = [[xlstm.init_mlstm_state(cfg, batch, device=device)
+                           for _ in range(cfg.xlstm.slstm_every - 1)]
+                          for _ in range(G)]
+        cache["slstm"] = [xlstm.init_slstm_state(cfg, batch, device=device)
+                          for _ in range(G)]
     else:
         cache["ssm"] = [[ssm.init_mamba_state(cfg, batch, device=device)
                          for _ in range(cfg.shared_attn_every)]
-                        for _ in range(cfg.n_super_groups())]
-        cache["kv"] = [kv() for _ in range(cfg.n_super_groups())]
+                        for _ in range(G)]
+        cache["kv"] = [kv() for _ in range(G)]
     return cache
 
 
@@ -185,13 +219,29 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict,
     h = embed_inputs(cfg, params, batch)
     S = h.shape[1]
     C = attention.cache_len_for(cfg, max(cache_len, S))
-    cache: Dict[str, Any] = {"pos": S, "kv": []}
-    if topology(cfg) == "homo":
+    cache: Dict[str, Any] = {"pos": S}
+    topo = topology(cfg)
+    if topo == "homo":
+        cache["kv"] = []
         for lp in params["layers"]:
             h, kv = _attn_prefill(cfg, lp, h, C, quantize_kv)
             cache["kv"].append(kv)
+    elif topo == "xlstm":           # no KV cache: quantize_kv is moot
+        cache["mlstm"], cache["slstm"] = [], []
+        for group, sp in zip(params["mlstm"], params["slstm"]):
+            states = []
+            for lp in group:
+                y, st = xlstm.mlstm_prefill(
+                    cfg, lp["mlstm"], layers.apply_norm(cfg, lp["norm"], h))
+                h = h + y
+                states.append(st)
+            y, st = xlstm.slstm_prefill(
+                cfg, sp["slstm"], layers.apply_norm(cfg, sp["norm"], h))
+            h = h + y
+            cache["mlstm"].append(states)
+            cache["slstm"].append(st)
     else:
-        cache["ssm"] = []
+        cache["ssm"], cache["kv"] = [], []
         for group in params["mamba"]:
             states = []
             for lp in group:
@@ -220,13 +270,30 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens: (B, 1) integer -> logits (B, V) and the
     cache advanced by one position: its KV tensors written in place, the
-    Mamba2 states replaced by new tensors."""
+    Mamba2, mLSTM and sLSTM states replaced by new tensors."""
     pos = cache["pos"]
     h = embed_inputs(cfg, params, {"tokens": tokens})
     new_cache = dict(cache, pos=pos + 1)
-    if topology(cfg) == "homo":
+    topo = topology(cfg)
+    if topo == "homo":
         for lp, kv in zip(params["layers"], cache["kv"]):
             h = _decode_attn_block(cfg, lp, h, kv, pos)
+    elif topo == "xlstm":
+        new_cache["mlstm"], new_cache["slstm"] = [], []
+        for group, sp, states, sst in zip(params["mlstm"], params["slstm"],
+                                          cache["mlstm"], cache["slstm"]):
+            new_states = []
+            for lp, st in zip(group, states):
+                y, st = xlstm.mlstm_decode(
+                    cfg, lp["mlstm"], layers.apply_norm(cfg, lp["norm"], h),
+                    st)
+                h = h + y
+                new_states.append(st)
+            y, sst = xlstm.slstm_decode(
+                cfg, sp["slstm"], layers.apply_norm(cfg, sp["norm"], h), sst)
+            h = h + y
+            new_cache["mlstm"].append(new_states)
+            new_cache["slstm"].append(sst)
     else:
         new_cache["ssm"] = []
         for group, states, kv in zip(params["mamba"], cache["ssm"],

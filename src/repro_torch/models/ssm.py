@@ -100,13 +100,23 @@ def mamba2_forward(cfg, p: Params, u: torch.Tensor) -> torch.Tensor:
     return _mamba2_apply(cfg, p, u)[0]
 
 
+def conv_state_of(x: torch.Tensor, K: int) -> torch.Tensor:
+    """The decode conv state after a prompt x (B, S, di): its last K - 1
+    rows in fp32, left-padded with zeros when S < K - 1, the state that
+    token-by-token decode from a zero state reaches."""
+    # the reference slices x[:, S - (K - 1):] (repro/models/ssm.py:168,
+    # xlstm.py:114), which keeps only S rows when S < K - 1, so its next
+    # decode step fails; the pad is the fix
+    tail = x[:, max(x.shape[1] - (K - 1), 0):, :].float()
+    return F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+
+
 def mamba2_prefill(cfg, p: Params, u: torch.Tensor
                    ) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward + decode-ready state."""
     out, h_final, x_raw = _mamba2_apply(cfg, p, u)
-    K = cfg.ssm.d_conv
-    conv_state = x_raw[:, x_raw.shape[1] - (K - 1):, :].float()
-    return out, {"ssm": h_final.float(), "conv": conv_state}
+    return out, {"ssm": h_final.float(),
+                 "conv": conv_state_of(x_raw, cfg.ssm.d_conv)}
 
 
 # ------------------------------------------------------------- decode

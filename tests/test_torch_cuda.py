@@ -1,7 +1,7 @@
 """The port's hand-written kernels on the card: each against its plain
 PyTorch version on the same CUDA tensors (``guard_stats`` also on inputs
-with NaN and ±Inf planted), the launch counters, and one reduced Zamba2
-prefill + decode on the card against the port's CPU path.
+with NaN and ±Inf planted), the launch counters, and reduced Zamba2 and
+xLSTM prefill + decode on the card against the port's CPU path.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -17,7 +17,11 @@ another order.  ``guard_stats``'s finite flags must match exactly.
 kernel-test bounds).  ``ssd_scan``: the kernel runs the recurrence step by
 step, the plain version chunk by chunk; over up to 512 steps of unit-scale
 inputs they differ by fp32 rounding, held to atol 2e-4 + rtol 1e-4 on y and
-the final state (SSD_ATOL/SSD_RTOL).
+the final state (SSD_ATOL/SSD_RTOL).  ``slstm_scan``: kernel and plain
+version run the same fp32 recurrence, summing each step's products in
+another order; out (|h| <= 1) and the final (h, c, n) within 1e-4 in fp32,
+and out within two bf16 ulps at unit scale (2^-7) in bf16, where one
+rounding of h can land on either side (SLSTM_TOL).
 """
 import pytest
 import torch
@@ -26,6 +30,7 @@ from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import folb_aggregate as tkern
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import slstm_scan as tslstm
 from repro_torch.kernels import ssm_scan as tssd
 from repro_torch.kernels.guard import GuardConfig
 
@@ -34,6 +39,7 @@ torch.set_num_threads(2)
 RTOL, ATOL = 1e-5, 1e-6
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_ATOL, SSD_RTOL = 2e-4, 1e-4
+SLSTM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 MODEL_ATOL = 1e-4
 SHAPES = [(10, 1024), (10, 114_688), (1, 2048), (64, 1024), (4, 7 * 1024)]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -196,13 +202,18 @@ def _ssd_inputs(B, S, H, P, G, N, seed, dev):
 
 # (B, S, H, P, G, N, chunk): Zamba2 at full width (cut to B = 1), the
 # reduced model, per-head groups as the Pallas kernel takes them, S = chunk,
-# and a step count that is not a multiple of the kernel's staging tile
+# a step count that is not a multiple of the kernel's staging tile, and the
+# largest state (N = 128) at P = 64, 384 and 1024 (rows over 1, 2 and 4
+# blocks)
 SSD_CASES = [
     (1, 512, 80, 64, 1, 64, 256),
     (2, 64, 16, 32, 1, 16, 32),
     (4, 128, 1, 16, 1, 8, 32),
     (2, 256, 4, 64, 1, 64, 256),
     (2, 100, 3, 24, 3, 32, 50),
+    (2, 128, 4, 64, 1, 128, 64),
+    (2, 128, 4, 384, 1, 128, 64),
+    (1, 128, 2, 1024, 1, 128, 64),
 ]
 
 
@@ -220,15 +231,43 @@ def test_ssd_scan_matches_plain_on_card(B, S, H, P, G, N, chunk):
     torch.testing.assert_close(h, h_p, atol=SSD_ATOL, rtol=SSD_RTOL)
 
 
+# (B, S, H, dh, dtype): xLSTM-1.3B's sLSTM at full width, in bf16 and
+# fp32; a prime S at full width; the reduced model
+SLSTM_CASES = [
+    (4, 512, 4, 512, torch.bfloat16),
+    (4, 512, 4, 512, torch.float32),
+    (2, 127, 4, 512, torch.float32),
+    (2, 37, 4, 64, torch.float32),
+]
+
+
 @pytest.mark.cuda
-def test_reduced_zamba2_prefill_decode_card_vs_cpu():
-    """Two super-groups, fp32: the card's prefill and 3 decode steps
-    against the port's CPU path from the same weights; 2 flash and 4 scan
-    launches in prefill, none in decode."""
+@pytest.mark.parametrize("B,S,H,dh,dtype", SLSTM_CASES)
+def test_slstm_scan_matches_plain_on_card(B, S, H, dh, dtype):
+    dev = _card()
+    gen = torch.Generator().manual_seed(S + dh)
+    xg = torch.randn((B, S, 4 * H * dh), generator=gen).to(dev, dtype)
+    r = (torch.randn((H, dh, 4 * dh), generator=gen) * dh ** -0.5).to(
+        dev, dtype)
+    tslstm.slstm_scan.launches = 0
+    out, state = tslstm.slstm_scan(xg, r, H)
+    want, want_state = tref.slstm_scan_ref(xg, r, H)
+    torch.cuda.synchronize()
+    assert tslstm.slstm_scan.launches == 1 and out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=SLSTM_TOL[dtype], rtol=0)
+    for got, ref in zip(state, want_state):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+def _card_vs_cpu(arch, n_layers, want_prefill):
+    """Reduced ``arch`` in fp32: the card's prefill of 40 tokens and 3
+    decode steps against the port's CPU path from the same weights; the
+    prefill launches ``want_prefill`` (the others: none), decode none."""
     from repro_torch.configs import get_config
     from repro_torch.models import model
     dev = _card()
-    cfg = get_config("zamba2-2.7b").reduced(n_layers=4)
+    cfg = get_config(arch).reduced(n_layers=n_layers)
     gen = torch.Generator().manual_seed(0)
     cpu_params = model.init_params(cfg, gen)
     card_params = _to(cpu_params, dev)
@@ -250,11 +289,23 @@ def test_reduced_zamba2_prefill_decode_card_vs_cpu():
         outs[name] = torch.stack(seq).cpu()
         if name == "card":
             torch.cuda.synchronize()
-            assert counts["flash_attention"] == 2
-            assert counts["ssd_scan"] == 4
+            assert counts == {k: want_prefill.get(k, 0) for k in counts}
             assert tops.launches() == counts
     torch.testing.assert_close(outs["card"], outs["cpu"], atol=MODEL_ATOL,
                                rtol=0)
+
+
+@pytest.mark.cuda
+def test_reduced_xlstm_prefill_decode_card_vs_cpu():
+    """Two super-groups: one sLSTM scan per group in prefill; the mLSTM
+    recurrence is plain, so no ``ssd_scan``."""
+    _card_vs_cpu("xlstm-1.3b", 4, {"slstm_scan": 2})
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_prefill_decode_card_vs_cpu():
+    """Two super-groups: 2 flash and 4 scan launches in prefill."""
+    _card_vs_cpu("zamba2-2.7b", 4, {"flash_attention": 2, "ssd_scan": 4})
 
 
 def _to(tree, dev):

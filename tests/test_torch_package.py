@@ -29,7 +29,8 @@ def test_port_imports_no_jax_and_no_reference():
     code = ("import sys; import repro_torch.fed, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.sysmodel.scenario, "
             "repro_torch.kernels.guard, repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.ssm_scan, repro_torch.models.model, "
+            "repro_torch.kernels.ssm_scan, repro_torch.kernels.slstm_scan, "
+            "repro_torch.models.model, repro_torch.models.xlstm, "
             "repro_torch.launch.serve, repro_torch.launch.profile_serve, "
             "repro_torch.configs; "
             "import repro_torch.configs as c; [c.get_config(a) for a in "

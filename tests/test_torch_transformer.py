@@ -356,7 +356,7 @@ def test_serve_defaults_to_the_card_and_refuses_what_is_not_ported():
             serve.main(argv)
     with pytest.raises(NotImplementedError):
         serve.main(argv + ["--device", "cpu", "--ckpt", "some/dir"])
-    for arch in ("mixtral-8x7b", "xlstm-1.3b", "phi-3-vision-4.2b"):
+    for arch in ("mixtral-8x7b", "phi-3-vision-4.2b"):
         with pytest.raises(NotImplementedError):
             serve.main(argv + ["--device", "cpu", "--arch", arch])
     with pytest.raises(ValueError):
